@@ -1,0 +1,40 @@
+"""Spatiotemporal derivative stencils.
+
+Port of ``tpuflow3d.derivatives`` (2-point stencils): central differences
+of the averaged volume Ibar = (I0 + I1w)/2 give the spatial gradient
+(Iz, Iy, Ix), and It = I1w - I0. Neumann boundaries via replicate padding;
+Z margins through HaloCtx.zpad.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpuflow3d_torch.grid import HaloCtx, Z_AXIS, neighbor_slices, replicate_pad
+
+
+def central_diff(x: torch.Tensor, axis: int,
+                 ctx: HaloCtx = HaloCtx()) -> torch.Tensor:
+    """0.5 * (x[p + e] - x[p - e]) with replicate edges (one-sided halves at
+    the global boundary)."""
+    if axis in (Z_AXIS, x.ndim + Z_AXIS):
+        xp = ctx.zpad(x, 1)
+        axis = Z_AXIS
+    else:
+        xp = replicate_pad(x, 1, axis=axis)
+    return 0.5 * (neighbor_slices(xp, 1, axis, +1)
+                  - neighbor_slices(xp, 1, axis, -1))
+
+
+def derivatives(i0: torch.Tensor, i1w: torch.Tensor,
+                ctx: HaloCtx = HaloCtx(),
+                order: int = 2) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (g, it): g = (3, D, H, W) spatial gradient (Iz, Iy, Ix) of
+    the averaged volume, it = I1w - I0."""
+    if order != 2:
+        raise NotImplementedError(
+            "deriv_order=4 is not ported yet (ROADMAP queue 1, item 4)")
+    ibar = 0.5 * (i0 + i1w)
+    g = torch.stack([central_diff(ibar, a, ctx) for a in (Z_AXIS, -2, -1)])
+    it = i1w - i0
+    return g, it

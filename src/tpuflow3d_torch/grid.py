@@ -1,0 +1,82 @@
+"""Grid utilities: Neumann padding and the one-device halo context.
+
+Port of ``tpuflow3d.grid`` for one device. Every stencil op goes through
+``HaloCtx.zpad`` / ``HaloCtx.z_halo_planes`` for its Z margin, as in the
+reference, so the Z-sharded context can later replace this one without
+touching the ops.
+
+Axis convention: volumes are (D, H, W) = (z, y, x); flow fields are
+(3, D, H, W) with component c displacing along array axis c. Z is always
+axis -3 so volumes and flow fields share all helpers.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+Z_AXIS = -3  # z axis for both (D,H,W) volumes and (3,D,H,W) flow fields
+
+
+def replicate_pad(x: torch.Tensor, nh: int, axis: int) -> torch.Tensor:
+    """Edge-replicate pad by nh on both sides of one axis (Neumann BC)."""
+    if nh == 0:
+        return x
+    n = x.shape[axis]
+    idx = torch.arange(-nh, n + nh, device=x.device).clamp_(0, n - 1)
+    return x.index_select(axis, idx)
+
+
+def pad_yx(x: torch.Tensor, nh: int) -> torch.Tensor:
+    """Edge-replicate pad the y and x axes."""
+    return replicate_pad(replicate_pad(x, nh, axis=-1), nh, axis=-2)
+
+
+def neighbor_slices(xp: torch.Tensor, nh: int, axis: int,
+                    delta: int) -> torch.Tensor:
+    """Shifted view of a padded array: value at p + delta*e_axis.
+
+    xp must be padded by nh >= |delta| along ``axis``; returns a view of
+    the unpadded length along ``axis``."""
+    n = xp.shape[axis] - 2 * nh
+    return xp.narrow(axis, nh + delta, n)
+
+
+@dataclass(frozen=True)
+class HaloCtx:
+    """One-device execution context: the local volume is the global one,
+    Z margins are edge replicas and reductions are the identity. (The
+    reference's Z-sharded and streamed-window modes are not ported yet.)"""
+
+    def z0(self, d_local: int) -> int:
+        """Global z index of local plane 0."""
+        return 0
+
+    def z_global(self, d_local: int, device=None) -> torch.Tensor:
+        """Global z index of each local plane, shape (d_local, 1, 1)."""
+        idx = torch.arange(d_local, device=device).reshape(d_local, 1, 1)
+        return idx + self.z0(d_local)
+
+    def d_global(self, d_local: int) -> int:
+        return d_local
+
+    def zpad(self, x: torch.Tensor, nh: int) -> torch.Tensor:
+        """Pad Z by nh planes per side (edge replication)."""
+        return replicate_pad(x, nh, axis=Z_AXIS)
+
+    def z_halo_planes(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """One-plane Z halos (lo, hi) as separate contiguous arrays of
+        z-extent 1, the form the kernels take them in."""
+        d = x.shape[Z_AXIS]
+        return (x.narrow(Z_AXIS, 0, 1).contiguous(),
+                x.narrow(Z_AXIS, d - 1, 1).contiguous())
+
+    def psum(self, v):
+        return v
+
+    def pmin(self, v):
+        return v
+
+    def pmax(self, v):
+        return v

@@ -1,0 +1,156 @@
+"""Coarse-to-fine flow pipeline.
+
+Port of ``tpuflow3d.pipeline`` for one device: normalize -> presmooth ->
+build pyramids -> per level (coarse to fine) ``warps`` times: warp +
+derivatives -> inner solve -> median -> accumulate -> clamp; upsample
+between levels. PyTorch runs eagerly, so the reference's ``fori_loop``s
+are Python loops. On CUDA tensors (backend "auto" or "kernels") the warp +
+derivatives, the SOR half-sweep and the median run hand-written kernels.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tpuflow3d_torch.backend import check_supported, use_kernels
+from tpuflow3d_torch.derivatives import derivatives
+from tpuflow3d_torch.grid import HaloCtx
+from tpuflow3d_torch.median import median3_op
+from tpuflow3d_torch.params import FlowParams
+from tpuflow3d_torch.pyramid import build_pyramid, smooth, upsample_flow
+from tpuflow3d_torch.solver import parity_mask, solve_increment
+from tpuflow3d_torch.warp import warp_volume
+
+
+def normalize_pair(i0, i1, ctx: HaloCtx):
+    """Jointly rescale both volumes to [0, 1], so alpha/epsilon are
+    intensity-scale invariant."""
+    mn = ctx.pmin(torch.minimum(i0.min(), i1.min()))
+    mx = ctx.pmax(torch.maximum(i0.max(), i1.max()))
+    scale = 1.0 / (mx - mn).clamp_min(1e-12)
+    return (i0 - mn) * scale, (i1 - mn) * scale
+
+
+def warp_iteration(i0l, i1l, flow, p: FlowParams, ctx: HaloCtx, parity,
+                   slot=None):
+    """ONE warp iteration: warp -> derivatives -> inner solve -> median ->
+    accumulate -> clamp. Returns the flow; per-sweep residuals go into
+    ``slot`` in place when it is given."""
+    if use_kernels(p, i0l):
+        from tpuflow3d_torch.kernels.warp_grad import warp_grad
+        g, it = warp_grad(i1l, flow, i0l, ctx)
+    else:
+        i1w = warp_volume(i1l, flow, ctx, interp=p.interp)
+        g, it = derivatives(i0l, i1w, ctx, order=p.deriv_order)
+    du = solve_increment(g, it, flow, p, ctx, parity, slot)
+    if p.median:
+        du = median3_op(du, ctx, p)
+    flow = flow + du
+    if p.flow_clamp > 0.0:
+        flow = flow.clamp(-p.flow_clamp, p.flow_clamp)
+    return flow
+
+
+def solve_level(i0l, i1l, flow, p: FlowParams, ctx: HaloCtx,
+                residuals_level=None):
+    """All warp iterations at one pyramid level; residuals go into
+    ``residuals_level`` (warps, inner*sweeps) in place when it is given."""
+    parity = parity_mask(tuple(i0l.shape), ctx, i0l.device)
+    for wi in range(p.warps):
+        slot = None if residuals_level is None else residuals_level[wi]
+        flow = warp_iteration(i0l, i1l, flow, p, ctx, parity, slot)
+    return flow
+
+
+def prepare_pyramids(i0, i1, p: FlowParams, ctx: HaloCtx):
+    """Normalize + presmooth + build both pyramids (fine -> coarse)."""
+    dtype = getattr(torch, p.dtype)
+    i0 = i0.to(dtype)
+    i1 = i1.to(dtype)
+    if p.normalize:
+        i0, i1 = normalize_pair(i0, i1, ctx)
+    if p.presmooth_sigma > 0.0:
+        i0 = smooth(i0, p.presmooth_sigma, ctx)
+        i1 = smooth(i1, p.presmooth_sigma, ctx)
+
+    gshape = (ctx.d_global(i0.shape[-3]), i0.shape[-2], i0.shape[-1])
+    shapes = p.level_shapes(gshape)
+    if shapes[0] != gshape:
+        raise ValueError(f"level shapes start at {shapes[0]}, volume is "
+                         f"{gshape}: pad Z to z_multiple first")
+    pyr0 = build_pyramid(i0, shapes, p, ctx)
+    pyr1 = build_pyramid(i1, shapes, p, ctx)
+    return pyr0, pyr1, shapes
+
+
+def compute_flow_impl(i0, i1, p: FlowParams, ctx: HaloCtx,
+                      diagnostics: bool = False):
+    """Coarse-to-fine solve of (D, H, W) volumes whose Z is already a
+    multiple of ``z_multiple``."""
+    pyr0, pyr1, shapes = prepare_pyramids(i0, i1, p, ctx)
+    dtype = getattr(torch, p.dtype)
+
+    n_levels = len(shapes)
+    track = diagnostics and p.track_residuals
+    residuals = (torch.zeros((n_levels, p.warps,
+                              p.inner_iterations * p.sweeps),
+                             dtype=dtype, device=i0.device)
+                 if track else None)
+
+    flow = torch.zeros((3, *pyr0[-1].shape), dtype=dtype, device=i0.device)
+    for li in range(n_levels - 1, -1, -1):
+        flow = solve_level(pyr0[li], pyr1[li], flow, p, ctx,
+                           residuals[li] if track else None)
+        if li > 0:
+            flow = upsample_flow(flow, shapes[li - 1], ctx)
+            if p.flow_clamp > 0.0:
+                flow = flow.clamp(-p.flow_clamp, p.flow_clamp)
+
+    if diagnostics:
+        return flow, ({"residuals": residuals} if track else {})
+    return flow
+
+
+def compute_flow(i0, i1, params: FlowParams = FlowParams(), device=None,
+                 diagnostics: bool = False):
+    """Compute dense 3D optical flow s with I1(x + s(x)) ~= I0(x).
+
+    i0, i1: (D, H, W) volumes, numpy arrays or tensors (any float/int
+    dtype). Numpy input is placed on ``device``, which is then required;
+    tensor input runs on its own device (``device``, if given, must be
+    the same). Returns a (3, D, H, W) tensor on that device (displacements
+    along z, y, x in voxels), plus a diagnostics dict when requested
+    (per-sweep residual curves if params.track_residuals).
+    """
+    if isinstance(i0, torch.Tensor) and isinstance(i1, torch.Tensor):
+        if i0.device != i1.device:
+            raise ValueError(f"volumes on {i0.device} and {i1.device}")
+        want = None if device is None else torch.device(device)
+        if want is not None and (want.type != i0.device.type or want.index
+                                 not in (None, i0.device.index)):
+            raise ValueError(f"device={device} but the volumes are on "
+                             f"{i0.device}")
+    elif isinstance(i0, np.ndarray) and isinstance(i1, np.ndarray):
+        if device is None:
+            raise ValueError("numpy volumes need device=... (no default)")
+        i0 = torch.as_tensor(i0, device=device)
+        i1 = torch.as_tensor(i1, device=device)
+    else:
+        raise TypeError("i0 and i1 must both be numpy arrays or both "
+                        "tensors")
+    if i0.shape != i1.shape or i0.ndim != 3:
+        raise ValueError(f"expected two equal-shape 3D volumes, got "
+                         f"{tuple(i0.shape)} vs {tuple(i1.shape)}")
+    check_supported(params, i0)
+
+    d = i0.shape[-3]
+    zm = params.z_multiple
+    d_pad = zm * ((d + zm - 1) // zm)
+    if d_pad != d:
+        i0 = torch.cat([i0, i0[-1:].expand(d_pad - d, -1, -1)], dim=0)
+        i1 = torch.cat([i1, i1[-1:].expand(d_pad - d, -1, -1)], dim=0)
+    out = compute_flow_impl(i0, i1, params, HaloCtx(), diagnostics)
+    if diagnostics:
+        return out[0][:, :d], out[1]
+    return out[:, :d]
