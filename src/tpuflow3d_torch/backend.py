@@ -30,22 +30,27 @@ def use_kernels(p: FlowParams, x: torch.Tensor) -> bool:
                        f"pass backend='plain' to run the plain versions")
 
 
-def check_supported(p: FlowParams, x: torch.Tensor) -> None:
-    """Raise NotImplementedError, naming its ROADMAP item, for every
-    setting this port does not serve yet (none is served by another path)."""
+def unsupported(p: FlowParams, kernels: bool) -> list[str]:
+    """The settings of ``p`` this port does not serve yet, each naming its
+    ROADMAP item; ``kernels`` says whether the CUDA kernels would run."""
     missing = []
-    if p.solver == "multigrid":
-        missing.append("solver='multigrid' (ROADMAP queue 1, item 9)")
-    if p.interp != "trilinear":
-        missing.append(f"interp={p.interp!r} (ROADMAP queue 2, K5)")
-    if p.gamma > 0.0:
-        missing.append("gamma > 0 (ROADMAP queue 2, K6)")
     if p.deriv_order != 2:
         missing.append("deriv_order=4 (ROADMAP queue 1, item 4)")
     if p.dtype != "float32" or p.terms_dtype != "float32":
         missing.append(f"dtype={p.dtype!r}, terms_dtype={p.terms_dtype!r} "
                        f"(ROADMAP queue 1, item 5)")
-    if p.sweep_layout == "packed" and use_kernels(p, x):
-        missing.append("sweep_layout='packed' on CUDA (ROADMAP queue 2, K4)")
+    # The reference sweeps packed only on its SOR path (the multigrid
+    # smoother is always flat), so only that needs the packed kernels.
+    if p.sweep_layout == "packed" and p.solver == "sor" and kernels:
+        k = "K7" if p.gamma > 0.0 else "K4"
+        missing.append(f"sweep_layout='packed' with solver='sor' on CUDA "
+                       f"(ROADMAP queue 2, {k})")
+    return missing
+
+
+def check_supported(p: FlowParams, x: torch.Tensor) -> None:
+    """Raise NotImplementedError, naming its ROADMAP item, for every
+    setting this port does not serve yet (none is served by another path)."""
+    missing = unsupported(p, use_kernels(p, x))
     if missing:
         raise NotImplementedError("not ported yet: " + "; ".join(missing))

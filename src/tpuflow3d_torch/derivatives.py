@@ -2,7 +2,8 @@
 
 Port of ``tpuflow3d.derivatives`` (2-point stencils): central differences
 of the averaged volume Ibar = (I0 + I1w)/2 give the spatial gradient
-(Iz, Iy, Ix), and It = I1w - I0. Neumann boundaries via replicate padding;
+(Iz, Iy, Ix), and It = I1w - I0; ``grad_constancy_terms`` linearizes the
+gradient-constancy assumption. Neumann boundaries via replicate padding;
 Z margins through HaloCtx.zpad.
 """
 
@@ -24,6 +25,36 @@ def central_diff(x: torch.Tensor, axis: int,
         xp = replicate_pad(x, 1, axis=axis)
     return 0.5 * (neighbor_slices(xp, 1, axis, +1)
                   - neighbor_slices(xp, 1, axis, -1))
+
+
+def grad_constancy_terms(i0: torch.Tensor, i1w: torch.Tensor,
+                         ctx: HaloCtx = HaloCtx(), order: int = 2,
+                         g: torch.Tensor | None = None
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Linearization terms of the gradient-constancy assumption (Brox et
+    al. 2004). For each spatial axis a the residual is r_a = gc_it[a] +
+    gc_g[a] . du, with
+
+        gc_it[a] = d_a(I1w) - d_a(I0)
+        gc_g[a]  = grad(d_a((I0 + I1w)/2))
+
+    Returns (gc_g (3, 3, D, H, W) indexed [a, component], gc_it (3, D, H,
+    W)). Pass ``g``, the gradient ``derivatives`` (or the fused kernel)
+    already produced from the same (i0, i1w), to reuse it as the inner
+    first derivative."""
+    if order != 2:
+        raise NotImplementedError(
+            "deriv_order=4 is not ported yet (ROADMAP queue 1, item 4)")
+    axes = (Z_AXIS, -2, -1)
+    if g is None:
+        ibar = 0.5 * (i0 + i1w)
+        g = torch.stack([central_diff(ibar, a, ctx) for a in axes])
+    gc_g = []
+    gc_it = []
+    for i, a in enumerate(axes):
+        gc_g.append(torch.stack([central_diff(g[i], b, ctx) for b in axes]))
+        gc_it.append(central_diff(i1w, a, ctx) - central_diff(i0, a, ctx))
+    return torch.stack(gc_g), torch.stack(gc_it)
 
 
 def derivatives(i0: torch.Tensor, i1w: torch.Tensor,

@@ -49,6 +49,12 @@ class HaloCtx:
     Z margins are edge replicas and reductions are the identity. (The
     reference's Z-sharded and streamed-window modes are not ported yet.)"""
 
+    @property
+    def n_shards(self) -> int:
+        """Number of Z shards (coarse multigrid Z dims stay multiples of
+        it)."""
+        return 1
+
     def z0(self, d_local: int) -> int:
         """Global z index of local plane 0."""
         return 0

@@ -3,10 +3,18 @@
 The sources are ``tpuflow3d_torch/csrc/*.cu``, each with a plain C entry
 point that launches its kernel on a given stream and returns
 ``cudaGetLastError()``. ``load_library`` compiles them with nvcc for
-``sm_90a`` into ``build/tpuflow3d_torch/lib<hash>.so`` at the root of the
-checkout (the hash covers the sources and the flags, so an edited source
-rebuilds) and loads it with ctypes. A missing nvcc or a failed build
-raises, with nvcc's output; nothing falls back to the plain versions.
+``sm_90a``, one nvcc per source, all started together, links the objects
+into ``build/tpuflow3d_torch/lib<hash>.so`` at the root of the checkout
+(the hash covers the sources and the flags, so an edited source rebuilds)
+and loads it with ctypes. A missing nvcc or a failed build raises, with
+nvcc's output; nothing falls back to the plain versions.
+
+``-fmad=false`` keeps nvcc from contracting a multiply and an add into one
+FMA, so a kernel that does its plain version's operations in the same
+order rounds as it does. The ``accurate`` path needs that: its multigrid
+solve amplifies last-bit differences, and with contraction the kernel and
+plain flows drifted apart by up to 2e-3 at 256^3 (NVIDIA H100 80GB HBM3,
+700 W); without it they are bitwise equal there.
 
 ``LAUNCHES`` counts the launches of each kernel: each wrapper adds one
 where it launches, so a run can show that its main path went through the
@@ -29,17 +37,21 @@ import torch
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "tpuflow3d_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-Xcompiler", "-fPIC")
 
-LAUNCHES = {"sor_halfsweep": 0, "warp_grad": 0, "median3": 0}
+LAUNCHES = {"sor_halfsweep": 0, "warp_grad": 0, "median3": 0,
+            "warp_grad_tricubic": 0, "sor_gc": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # du, c, g, psi_s, psi_d, du_lo, du_hi, ps_lo, ps_hi, out, D, H, W, z0,
     # dg, half_alpha, omega, one_minus_omega, color, stream
     "tf3d_sor_halfsweep": [_P] * 10 + [_I] * 5 + [_F] * 3 + [_I, _P],
-    # i1, flow, i0, g, it, D, H, W, stream
-    "tf3d_warp_grad": [_P] * 5 + [_I] * 3 + [_P],
+    # i1, flow, i0, g, it, i1w (may be null), D, H, W, cubic, stream
+    "tf3d_warp_grad": [_P] * 6 + [_I] * 4 + [_P],
+    # du, c, ainv, psi_s, du_lo, du_hi, ps_lo, ps_hi, out, D, H, W, z0, dg,
+    # hz, hy, hx, omega, one_minus_omega, color, stream
+    "tf3d_sor_halfsweep_gc": [_P] * 9 + [_I] * 5 + [_F] * 5 + [_I, _P],
     # x, lo, hi, out, C, D, H, W, stream
     "tf3d_median3": [_P] * 4 + [_I] * 4 + [_P],
 }
@@ -75,27 +87,37 @@ def library_path() -> Path:
     return BUILD_DIR / f"lib{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands together; raise with the output of the first that
+    fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+
+
 def build() -> Path:
-    """Compile the kernels unless the library for these sources exists.
-    Concurrent builds are safe: each writes a temporary file and renames
-    it into place."""
+    """Compile the kernels unless the library for these sources exists:
+    one nvcc per source, started together, then one link. Concurrent
+    builds are safe: each works in a temporary directory and renames the
+    library into place."""
     lib = library_path()
     if lib.exists():
         return lib
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(prefix=lib.stem + ".", suffix=".tmp",
-                               dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with tempfile.TemporaryDirectory(prefix=lib.stem + ".",
+                                     dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in _sources()]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                  for src, obj in zip(_sources(), objs)])
+        out = os.path.join(tmp, lib.name)
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", out, *objs]])
+        os.replace(out, lib)
     return lib
 
 

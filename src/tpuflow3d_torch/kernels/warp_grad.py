@@ -1,9 +1,14 @@
-"""K2 wrapper: fused trilinear warp + derivatives (``csrc/warp_grad.cu``).
+"""K2 and K5 wrapper: fused warp + derivatives (``csrc/warp_grad.cu``).
 
-Replaces ``tpuflow3d/pallas/warp_grad.py:warp_grad_pallas`` with
-``interp="trilinear"``. Unlike the TPU kernel it serves any displacement
-(a CUDA gather has no clamp cap). The plain version, run for CPU tensors,
-is ``warp.warp_volume`` followed by ``derivatives.derivatives``.
+Replaces ``tpuflow3d/pallas/warp_grad.py:warp_grad_pallas``: K2 with
+``interp="trilinear"``, K5 with ``interp="tricubic"`` (Catmull-Rom, 4x4x4
+taps, each clamped to the volume). Unlike the TPU kernel it serves any
+displacement and any width (a CUDA gather has no clamp cap and no VMEM
+budget). With ``emit_warped`` it also returns the warped volume, which
+the gradient-constancy terms read. The plain version, run for CPU
+tensors, is ``warp.warp_volume`` followed by ``derivatives.derivatives``.
+The two interpolations count their launches apart (``warp_grad`` and
+``warp_grad_tricubic``).
 """
 
 from __future__ import annotations
@@ -17,11 +22,18 @@ from tpuflow3d_torch.warp import warp_volume
 
 
 def warp_grad(i1: torch.Tensor, flow: torch.Tensor, i0: torch.Tensor,
-              ctx: HaloCtx = HaloCtx()) -> tuple[torch.Tensor, torch.Tensor]:
+              ctx: HaloCtx = HaloCtx(), interp: str = "trilinear",
+              emit_warped: bool = False) -> tuple[torch.Tensor, ...]:
     """Warp i1 (D, H, W) by flow (3, D, H, W) and return (g, it): the
-    gradient (3, D, H, W) of (i0 + i1w)/2 and it = i1w - i0 (D, H, W)."""
+    gradient (3, D, H, W) of (i0 + i1w)/2 and it = i1w - i0 (D, H, W);
+    (g, it, i1w) with ``emit_warped``."""
+    if interp not in ("trilinear", "tricubic"):
+        raise ValueError(f"interp must be 'trilinear' or 'tricubic', got "
+                         f"{interp!r}")
     if i1.device.type == "cpu":
-        return derivatives(i0, warp_volume(i1, flow, ctx), ctx)
+        i1w = warp_volume(i1, flow, ctx, interp=interp)
+        g, it = derivatives(i0, i1w, ctx)
+        return (g, it, i1w) if emit_warped else (g, it)
     if i1.device.type != "cuda":
         raise RuntimeError(f"warp_grad: no kernel for {i1.device}")
     d, h, w = i1.shape
@@ -31,10 +43,14 @@ def warp_grad(i1: torch.Tensor, flow: torch.Tensor, i0: torch.Tensor,
     kernels.check_tensor("i0", i0, (d, h, w), dev)
     g = torch.empty((3, d, h, w), dtype=torch.float32, device=dev)
     it = torch.empty((d, h, w), dtype=torch.float32, device=dev)
+    i1w = torch.empty_like(it) if emit_warped else None
+    cubic = interp == "tricubic"
     lib = kernels.load_library()
     with torch.cuda.device(dev):
-        kernels.launch("warp_grad", lib.tf3d_warp_grad,
+        kernels.launch("warp_grad_tricubic" if cubic else "warp_grad",
+                       lib.tf3d_warp_grad,
                        i1.data_ptr(), flow.data_ptr(), i0.data_ptr(),
-                       g.data_ptr(), it.data_ptr(), d, h, w,
-                       kernels.stream_handle(dev))
-    return g, it
+                       g.data_ptr(), it.data_ptr(),
+                       i1w.data_ptr() if emit_warped else None, d, h, w,
+                       int(cubic), kernels.stream_handle(dev))
+    return (g, it, i1w) if emit_warped else (g, it)

@@ -5,7 +5,9 @@ build pyramids -> per level (coarse to fine) ``warps`` times: warp +
 derivatives -> inner solve -> median -> accumulate -> clamp; upsample
 between levels. PyTorch runs eagerly, so the reference's ``fori_loop``s
 are Python loops. On CUDA tensors (backend "auto" or "kernels") the warp +
-derivatives, the SOR half-sweep and the median run hand-written kernels.
+derivatives (K2 trilinear, K5 tricubic), the SOR half-sweep (K1, or K6 for
+gamma > 0 and on every multigrid level) and the median (K3) run
+hand-written kernels.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import numpy as np
 import torch
 
 from tpuflow3d_torch.backend import check_supported, use_kernels
-from tpuflow3d_torch.derivatives import derivatives
+from tpuflow3d_torch.derivatives import derivatives, grad_constancy_terms
 from tpuflow3d_torch.grid import HaloCtx
 from tpuflow3d_torch.median import median3_op
 from tpuflow3d_torch.params import FlowParams
@@ -34,16 +36,23 @@ def normalize_pair(i0, i1, ctx: HaloCtx):
 
 def warp_iteration(i0l, i1l, flow, p: FlowParams, ctx: HaloCtx, parity,
                    slot=None):
-    """ONE warp iteration: warp -> derivatives -> inner solve -> median ->
-    accumulate -> clamp. Returns the flow; per-sweep residuals go into
-    ``slot`` in place when it is given."""
+    """ONE warp iteration: warp -> derivatives (+ gradient-constancy terms
+    when gamma > 0) -> inner solve -> median -> accumulate -> clamp.
+    Returns the flow; per-sweep residuals go into ``slot`` in place when
+    it is given."""
+    gamma = p.gamma > 0.0
     if use_kernels(p, i0l):
         from tpuflow3d_torch.kernels.warp_grad import warp_grad
-        g, it = warp_grad(i1l, flow, i0l, ctx)
+        out = warp_grad(i1l, flow, i0l, ctx, interp=p.interp,
+                        emit_warped=gamma)
+        g, it = out[:2]
+        i1w = out[2] if gamma else None
     else:
         i1w = warp_volume(i1l, flow, ctx, interp=p.interp)
         g, it = derivatives(i0l, i1w, ctx, order=p.deriv_order)
-    du = solve_increment(g, it, flow, p, ctx, parity, slot)
+    gc = (grad_constancy_terms(i0l, i1w, ctx, order=p.deriv_order, g=g)
+          if gamma else None)
+    du = solve_increment(g, it, flow, p, ctx, parity, slot, gc=gc)
     if p.median:
         du = median3_op(du, ctx, p)
     flow = flow + du

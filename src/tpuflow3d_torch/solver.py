@@ -1,16 +1,22 @@
 """Relaxation solver for the coupled Euler-Lagrange system.
 
-Port of ``tpuflow3d.solver`` (rank-1 data term; SOR and Jacobi). Per
-nonlinearity update the Charbonnier weights and the constant part of the
-right-hand side are computed once; each sweep is then a 6-neighbour
-stencil over the increment field, with the exact Sherman-Morrison solve
-of the per-voxel system A = sw*I + psi_d*g g^T:
+Port of ``tpuflow3d.solver`` (SOR, Jacobi, and the dispatch to multigrid).
+Per nonlinearity update the Charbonnier weights and the constant part of
+the right-hand side are computed once; each sweep is then a 6-neighbour
+stencil over the increment field, with an exact point solve of the
+per-voxel system. Intensity constancy alone gives A = sw*I + psi_d*g g^T,
+solved by Sherman-Morrison:
 
     A^-1 b = b/sw - g * (psi_d * (g.b)) / (sw * (sw + psi_d*|g|^2))
 
+With gradient constancy (gamma > 0) A gains psi_g * sum_a h_a h_a^T and is
+a general SPD 3x3, whose symmetric inverse is precomputed per nonlinearity
+update (``SolveTerms.ainv``).
+
 Red/black colouring uses the *global* parity of (z+y+x). On CUDA tensors
-the SOR half-sweep runs the hand-written kernel (``kernels/sor.py``);
-``sor_halfsweep`` here is its plain version.
+the SOR half-sweep runs a hand-written kernel: K1 (``kernels/sor.py``) for
+the rank-1 system, K6 (``kernels/sor_gc.py``) for the general one;
+``sor_halfsweep`` here is the plain version of both.
 """
 
 from __future__ import annotations
@@ -30,16 +36,24 @@ _DIRECTIONS = ((Z_AXIS, +1), (Z_AXIS, -1), (-2, +1), (-2, -1),
 
 
 class SolveTerms(NamedTuple):
-    """Per-nonlinear-iteration constants consumed by the sweeps. The kernel
-    reads only (c, g, psi_s, psi_d) and recomputes the weights; the plain
-    sweep reads (c, g, w, sw_inv, smt)."""
+    """Per-nonlinear-iteration constants consumed by the sweeps. K1 reads
+    only (c, g, psi_s, psi_d) and K6 only (c, ainv, psi_s); both recompute
+    the weights. The plain sweep reads (c, w) and either (g, sw_inv, smt)
+    or ainv."""
     c: torch.Tensor       # (3, D, H, W) constant RHS part
     g: torch.Tensor       # (3, D, H, W) spatial gradient
     w: tuple              # 6 x (D, H, W) neighbour weights z+, z-, y+, y-, x+, x-
     sw_inv: torch.Tensor  # (D, H, W) 1 / sum_q w_pq
     smt: torch.Tensor     # (D, H, W) psi_d / (sw * (sw + psi_d*|g|^2))
-    psi_s: torch.Tensor   # (D, H, W) smoothness penalizer derivative
-    psi_d: torch.Tensor   # (D, H, W) data penalizer derivative
+    psi_s: torch.Tensor = None  # (D, H, W) smoothness penalizer derivative
+    psi_d: torch.Tensor = None  # (D, H, W) data penalizer derivative
+    ainv: torch.Tensor = None   # (6, D, H, W) symmetric A^-1 rows
+                                # (00,01,02,11,12,22): gamma > 0 and
+                                # multigrid, where A is a general SPD 3x3
+    d6: torch.Tensor = None     # (6, D, H, W) data-matrix entries D =
+                                # psi_d g g^T + psi_g sum_a h_a h_a^T (no sw
+                                # on the diagonal): gamma > 0 only; the
+                                # multigrid hierarchy restricts them
 
 
 def _psi_deriv(q2: torch.Tensor, penalizer: str, eps: float) -> torch.Tensor:
@@ -92,14 +106,32 @@ def _face_masks(shape_local: tuple[int, int, int], ctx: HaloCtx,
     ]
 
 
+def _sym3_inverse(m00, m01, m02, m11, m12, m22) -> torch.Tensor:
+    """Inverse of a symmetric 3x3 (SPD here: sw*I + PSD data terms) via
+    the adjugate; rows (00,01,02,11,12,22) stacked on a leading axis."""
+    c00 = m11 * m22 - m12 * m12
+    c01 = m02 * m12 - m01 * m22
+    c02 = m01 * m12 - m02 * m11
+    c11 = m00 * m22 - m02 * m02
+    c12 = m01 * m02 - m00 * m12
+    c22 = m00 * m11 - m01 * m01
+    det_inv = 1.0 / (m00 * c00 + m01 * c01 + m02 * c02)
+    return torch.stack([c00, c01, c02, c11, c12, c22]) * det_inv
+
+
 def compute_terms(g: torch.Tensor, it: torch.Tensor, flow: torch.Tensor,
                   du: torch.Tensor, p: FlowParams,
-                  ctx: HaloCtx = HaloCtx()) -> SolveTerms:
+                  ctx: HaloCtx = HaloCtx(), gc=None) -> SolveTerms:
     """Nonlinearity update: recompute psi' weights and RHS constants for the
-    current increment estimate."""
-    if p.gamma > 0.0:
-        raise NotImplementedError(
-            "gamma > 0 is not ported yet (ROADMAP queue 2, K6)")
+    current increment estimate.
+
+    ``gc``: (gc_g, gc_it) from ``derivatives.grad_constancy_terms``,
+    required exactly when p.gamma > 0. It adds gamma*psi_g * sum_a h_a
+    h_a^T to the point system, whose exact symmetric inverse is then
+    precomputed (``ainv``) together with the data block (``d6``)."""
+    if (p.gamma > 0.0) != (gc is not None):
+        raise ValueError("gamma > 0 requires grad_constancy_terms (and "
+                         "vice versa)")
     if p.terms_dtype != str(g.dtype).removeprefix("torch."):
         raise NotImplementedError(
             "terms_dtype other than the solver dtype is not ported yet "
@@ -146,8 +178,27 @@ def compute_terms(g: torch.Tensor, it: torch.Tensor, flow: torch.Tensor,
     sw_inv = 1.0 / sw
     q = psi_d * (g * g).sum(0)
     smt = psi_d * sw_inv / (sw + q)
+
+    ainv = d6 = None
+    if gc is not None:
+        # Gradient constancy: one robust penalizer over the summed per-axis
+        # derivative residuals r_a = gc_it[a] + gc_g[a].du, weighted by
+        # gamma; A = sw*I + psi_d g g^T + psi_g sum_a h_a h_a^T.
+        gc_g, gc_it = gc
+        r_g = gc_it + (gc_g * du[None]).sum(1)
+        psi_g = float(np.float32(p.gamma)) * _psi_deriv(
+            (r_g * r_g).sum(0), p.penalizer_grad, p.eps_grad)
+        c = c - ((psi_g[None] * gc_it)[:, None] * gc_g).sum(0)
+
+        def d_entry(i, j):
+            return (psi_d * g[i] * g[j]
+                    + psi_g * (gc_g[:, i] * gc_g[:, j]).sum(0))
+        d6 = torch.stack([d_entry(0, 0), d_entry(0, 1), d_entry(0, 2),
+                          d_entry(1, 1), d_entry(1, 2), d_entry(2, 2)])
+        ainv = _sym3_inverse(d6[0] + sw, d6[1], d6[2],
+                             d6[3] + sw, d6[4], d6[5] + sw)
     return SolveTerms(c=c, g=g, w=tuple(w_dirs), sw_inv=sw_inv, smt=smt,
-                      psi_s=psi_s, psi_d=psi_d)
+                      psi_s=psi_s, psi_d=psi_d, ainv=ainv, d6=d6)
 
 
 def _du_star(du: torch.Tensor, t: SolveTerms, ctx: HaloCtx) -> torch.Tensor:
@@ -155,6 +206,15 @@ def _du_star(du: torch.Tensor, t: SolveTerms, ctx: HaloCtx) -> torch.Tensor:
     b = t.c
     for wd, dnb in zip(t.w, _neighbors6(du, ctx)):
         b = b + wd[None] * dnb
+    if t.ainv is not None:
+        # General SPD system: x = A^-1 b with the precomputed symmetric
+        # inverse (rows 00,01,02,11,12,22); g is not read.
+        a = t.ainv
+        return torch.stack([
+            a[0] * b[0] + a[1] * b[1] + a[2] * b[2],
+            a[1] * b[0] + a[3] * b[1] + a[4] * b[2],
+            a[2] * b[0] + a[4] * b[1] + a[5] * b[2],
+        ])
     gb = (t.g * b).sum(0)
     return b * t.sw_inv[None] - t.g * (gb * t.smt)[None]
 
@@ -163,7 +223,7 @@ def sor_halfsweep(du: torch.Tensor, t: SolveTerms, omega: float,
                   parity: torch.Tensor, color: int,
                   ctx: HaloCtx = HaloCtx()) -> torch.Tensor:
     """One red-black half-sweep: relax the voxels of ``color``, keep the
-    others (plain version of kernel K1)."""
+    others (plain version of kernel K1, and of K6 when ``t.ainv`` is set)."""
     star = _du_star(du, t, ctx)
     new = (1.0 - omega) * du + omega * star
     return torch.where((parity == color)[None], new, du)
@@ -177,28 +237,35 @@ def jacobi_sweep(du: torch.Tensor, t: SolveTerms, omega: float,
 
 def solve_increment(g: torch.Tensor, it: torch.Tensor, flow: torch.Tensor,
                     p: FlowParams, ctx: HaloCtx, parity: torch.Tensor,
-                    residuals_slot: torch.Tensor | None = None):
-    """Full inner solve: nonlinearity loop x sweep loop. Returns the flow
-    increment; when ``residuals_slot`` (an (inner*sweeps,) tensor) is
-    given, writes the per-sweep mean update norm into it in place.
+                    residuals_slot: torch.Tensor | None = None, gc=None):
+    """Full inner solve: nonlinearity loop x (sweep loop or multigrid
+    V-cycles). Returns the flow increment; when ``residuals_slot`` (an
+    (inner*sweeps,) tensor) is given, writes the per-sweep (per-cycle for
+    multigrid) mean update norm into it in place. ``gc``: the
+    gradient-constancy terms, required exactly when p.gamma > 0; SOR then
+    sweeps the general SPD system (K6 on CUDA).
 
-    With ``residual_tol`` > 0 the sweeps of each inner iteration stop once
-    the mean update norm falls below it; the test costs one host sync per
-    sweep."""
-    if p.solver == "multigrid":
-        raise NotImplementedError(
-            "solver='multigrid' is not ported yet (ROADMAP queue 1, item 9)")
+    With ``residual_tol`` > 0 the sweeps (cycles) of each inner iteration
+    stop once the mean update norm falls below it; the test costs one host
+    sync per sweep (cycle)."""
     du = torch.zeros_like(flow)
     track = residuals_slot is not None
     n_global = 3.0 * ctx.d_global(it.shape[-3]) * it.shape[-2] * it.shape[-1]
     kernel_sweeps = p.solver == "sor" and use_kernels(p, g)
     if kernel_sweeps:
-        from tpuflow3d_torch.kernels.sor import sor_halfsweep as sor_kernel
+        if p.gamma > 0.0:
+            from tpuflow3d_torch.kernels.sor_gc import sor_halfsweep_gc
+        else:
+            from tpuflow3d_torch.kernels.sor import sor_halfsweep as sor_kernel
 
     def one_sweep(du, t):
         if kernel_sweeps:
             for color in (0, 1):
-                du = sor_kernel(du, t, p.alpha, p.omega, color, ctx)
+                if p.gamma > 0.0:
+                    du = sor_halfsweep_gc(du, t, (p.alpha,) * 3, p.omega,
+                                          color, ctx)
+                else:
+                    du = sor_kernel(du, t, p.alpha, p.omega, color, ctx)
             return du
         if p.solver == "sor":
             du = sor_halfsweep(du, t, p.omega, parity, 0, ctx)
@@ -209,7 +276,11 @@ def solve_increment(g: torch.Tensor, it: torch.Tensor, flow: torch.Tensor,
         return ctx.psum((du1 - du).abs().sum()) / n_global
 
     for k in range(p.inner_iterations):
-        t = compute_terms(g, it, flow, du, p, ctx)
+        t = compute_terms(g, it, flow, du, p, ctx, gc=gc)
+        if p.solver == "multigrid":
+            from tpuflow3d_torch.mgsolver import mg_solve
+            du = mg_solve(du, t, p, ctx, residuals_slot, k * p.sweeps)
+            continue
         for s in range(p.sweeps):
             du1 = one_sweep(du, t)
             if track or p.residual_tol > 0.0:

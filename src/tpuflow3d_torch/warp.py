@@ -1,9 +1,12 @@
-"""Backward trilinear warping.
+"""Backward warping, trilinear or tricubic.
 
 Port of ``tpuflow3d.warp`` for one device: I1w(x) = I1(x + s(x)) by
-backward trilinear interpolation with clamp-to-edge sampling. Coordinates
-are computed in float32 exactly as the reference does: clip to
-[0, dim-1], then floor, then the upper corner min(i+1, dim-1).
+backward trilinear or tricubic (separable Catmull-Rom) interpolation with
+clamp-to-edge sampling. Coordinates are computed in float32 exactly as the
+reference does: clip to [0, dim-1], then floor; the trilinear upper corner
+is min(i+1, dim-1), and each of the 4x4x4 tricubic taps is clamped to the
+volume on its own. These are the plain versions of kernels K2 and K5
+(with ``derivatives.derivatives``).
 """
 
 from __future__ import annotations
@@ -59,15 +62,61 @@ def _trilinear_gather(vol: torch.Tensor, cz, cy, cx) -> torch.Tensor:
     return c0 * (1 - fz) + c1 * fz
 
 
+def _cubic_weights(f):
+    """Catmull-Rom weights for taps (-1, 0, +1, +2) at fraction f in [0,1)
+    (interpolating, C^1, 4-point support)."""
+    f2 = f * f
+    f3 = f2 * f
+    return (0.5 * (-f3 + 2.0 * f2 - f),
+            0.5 * (3.0 * f3 - 5.0 * f2 + 2.0),
+            0.5 * (-3.0 * f3 + 4.0 * f2 + f),
+            0.5 * (f3 - f2))
+
+
+def _tricubic_gather(vol: torch.Tensor, cz, cy, cx) -> torch.Tensor:
+    """Tricubic (separable Catmull-Rom) sample of vol (D,H,W) at real
+    coords already within [0, dim-1]; out-of-range taps clamp to the
+    boundary. Accumulated in the reference's order (per z tap, pz +=
+    wy * (wx * v), then acc += wz * pz), which sets the rounding. Each
+    tap's index volume is dropped before the next is made, so only a few
+    are ever live (the reference's Z-chunking for TPU memory is not
+    needed)."""
+    d, h, w = vol.shape[-3:]
+    z0 = torch.floor(cz)
+    y0 = torch.floor(cy)
+    x0 = torch.floor(cx)
+    wz = _cubic_weights(cz - z0)
+    wy = _cubic_weights(cy - y0)
+    wx = _cubic_weights(cx - x0)
+    z0 = z0.long()
+    y0 = y0.long()
+    x0 = x0.long()
+    flat = vol.reshape(-1)
+    acc = None
+    for iz in range(4):
+        zrow = (z0 + (iz - 1)).clamp_(0, d - 1) * h
+        pz = None
+        for iy in range(4):
+            row = (zrow + (y0 + (iy - 1)).clamp_(0, h - 1)) * w
+            for ix in range(4):
+                v = flat[row + (x0 + (ix - 1)).clamp_(0, w - 1)]
+                term = wy[iy] * (wx[ix] * v)
+                pz = term if pz is None else pz + term
+            del row
+        term = wz[iz] * pz
+        acc = term if acc is None else acc + term
+    return acc
+
+
 def warp_volume(i1: torch.Tensor, flow: torch.Tensor, ctx: HaloCtx = HaloCtx(),
                 interp: str = "trilinear") -> torch.Tensor:
     """Backward-warp the moving volume i1 (D, H, W) by ``flow`` (3, D, H, W:
     z, y, x displacements in voxels of the current level). On one device
     no displacement bound is needed (the sharded reference needs
     ``max_disp`` to size its Z halo, see ``warp_halo``)."""
-    if interp != "trilinear":
-        raise NotImplementedError(
-            "interp='tricubic' is not ported yet (ROADMAP queue 2, K5)")
+    if interp not in ("trilinear", "tricubic"):
+        raise ValueError(f"interp must be 'trilinear' or 'tricubic', got "
+                         f"{interp!r}")
     d, h, w = i1.shape
     d_global = ctx.d_global(d)
     kw = dict(dtype=flow.dtype, device=flow.device)
@@ -77,4 +126,5 @@ def warp_volume(i1: torch.Tensor, flow: torch.Tensor, ctx: HaloCtx = HaloCtx(),
     cz = (zi + flow[0]).clamp(0.0, d_global - 1)
     cy = (yi + flow[1]).clamp(0.0, h - 1)
     cx = (xi + flow[2]).clamp(0.0, w - 1)
-    return _trilinear_gather(i1, cz, cy, cx)
+    gather = _tricubic_gather if interp == "tricubic" else _trilinear_gather
+    return gather(i1, cz, cy, cx)

@@ -1,5 +1,7 @@
-"""The CUDA kernels (K1 SOR half-sweep, K2 fused warp + derivatives, K3
-median) against their plain PyTorch versions, on the card.
+"""The CUDA kernels (K1 SOR half-sweep, K2/K5 fused trilinear/tricubic
+warp + derivatives, K3 median, K6 general-SPD SOR half-sweep) against
+their plain PyTorch versions, on the card, and compute_flow through the
+kernels against plain on the ladder, ``accurate`` and gamma paths.
 
 Marked ``cuda``: every test skips when torch.cuda.is_available() is false.
 The machine with the card has no JAX, and tests/conftest.py imports it,
@@ -13,14 +15,16 @@ import numpy as np
 import pytest
 import torch
 
-from tpuflow3d_torch import FlowParams, compute_flow, kernels
+from tpuflow3d_torch import PRESETS, FlowParams, compute_flow, kernels
 from tpuflow3d_torch import synthetic as syn
-from tpuflow3d_torch.derivatives import derivatives
+from tpuflow3d_torch.derivatives import derivatives, grad_constancy_terms
 from tpuflow3d_torch.grid import HaloCtx
 from tpuflow3d_torch.kernels.median3 import median3 as k_median3
 from tpuflow3d_torch.kernels.sor import sor_halfsweep as k_sor
+from tpuflow3d_torch.kernels.sor_gc import sor_halfsweep_gc as k_sor_gc
 from tpuflow3d_torch.kernels.warp_grad import warp_grad as k_warp_grad
 from tpuflow3d_torch.median import median3
+from tpuflow3d_torch.mgsolver import build_mg_levels
 from tpuflow3d_torch.solver import compute_terms, parity_mask, sor_halfsweep
 from tpuflow3d_torch.warp import warp_volume
 
@@ -41,16 +45,18 @@ def _t(a, dev):
     return torch.as_tensor(np.asarray(a, np.float32), device=dev)
 
 
-def _terms(shape, dev, seed=0):
+def _terms(shape, dev, seed=0, gamma=0.0):
     rng = np.random.default_rng(seed)
     i0 = _t(rng.normal(size=shape), dev)
     shift = torch.zeros((3, *shape), device=dev)
     shift[2] = 0.7
     i1 = warp_volume(i0, -shift)
     g, it = derivatives(i0, i1)
+    gc = grad_constancy_terms(i0, i1, g=g) if gamma > 0 else None
     flow = _t(rng.normal(size=(3, *shape)) * 0.1, dev)
     du = _t(rng.normal(size=(3, *shape)) * 0.05, dev)
-    return du, compute_terms(g, it, flow, du, FlowParams(alpha=ALPHA))
+    return du, compute_terms(g, it, flow, du,
+                             FlowParams(alpha=ALPHA, gamma=gamma), gc=gc)
 
 
 @pytest.mark.parametrize("color", [0, 1])
@@ -76,6 +82,55 @@ def test_sor_sweep_sequence_matches_plain(dev):
     torch.testing.assert_close(got, ref, atol=5e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("color", [0, 1])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_sor_gc_halfsweep_matches_plain(dev, shape, color):
+    du, t = _terms(shape, dev, gamma=1.5)
+    parity = parity_mask(shape, HaloCtx(), dev)
+    ref = sor_halfsweep(du, t, OMEGA, parity, color)
+    got = k_sor_gc(du, t, (ALPHA,) * 3, OMEGA, color)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, atol=5e-5, rtol=1e-5)
+
+
+def test_sor_gc_every_multigrid_level_matches_plain(dev):
+    """K6 with each level's per-axis alphas (anisotropic: 16 x 33 x 70
+    halves to odd, unequal dims) against the plain sweep on that level's
+    weights."""
+    du, t = _terms((16, 33, 70), dev)
+    p = FlowParams(alpha=ALPHA, solver="multigrid")
+    rng = np.random.default_rng(4)
+    levels = build_mg_levels(t, p, HaloCtx())
+    assert len({lvl.axis_alpha for lvl in levels}) > 1
+    for lvl in levels:
+        shp = (3, *lvl.shape_global)
+        x = _t(rng.normal(size=shp) * 0.05, dev)
+        lt = lvl.terms._replace(c=_t(rng.normal(size=shp), dev))
+        for color in (0, 1):
+            ref = sor_halfsweep(x, lt, 1.3, lvl.parity, color)
+            got = k_sor_gc(x, lt, lvl.axis_alpha, 1.3, color)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, ref, atol=5e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("emit_warped", [False, True])
+@pytest.mark.parametrize("max_disp", [2.0, 6.0])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_warp_grad_tricubic_matches_plain(dev, shape, max_disp, emit_warped):
+    rng = np.random.default_rng(5)
+    i0 = _t(rng.normal(size=shape), dev)
+    i1 = _t(rng.normal(size=shape), dev)
+    flow = _t(rng.uniform(-max_disp, max_disp, (3, *shape)), dev)
+    i1w = warp_volume(i1, flow, interp="tricubic")
+    ref = (*derivatives(i0, i1w), i1w)
+    got = k_warp_grad(i1, flow, i0, interp="tricubic",
+                      emit_warped=emit_warped)
+    torch.cuda.synchronize()
+    assert len(got) == (3 if emit_warped else 2)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
 @pytest.mark.parametrize("max_disp", [2.0, 6.0])
 @pytest.mark.parametrize("shape", SHAPES)
 def test_warp_grad_matches_plain(dev, shape, max_disp):
@@ -83,11 +138,14 @@ def test_warp_grad_matches_plain(dev, shape, max_disp):
     i0 = _t(rng.normal(size=shape), dev)
     i1 = _t(rng.normal(size=shape), dev)
     flow = _t(rng.uniform(-max_disp, max_disp, (3, *shape)), dev)
-    g_ref, it_ref = derivatives(i0, warp_volume(i1, flow))
+    i1w = warp_volume(i1, flow)
+    g_ref, it_ref = derivatives(i0, i1w)
     g, it = k_warp_grad(i1, flow, i0)
+    _, _, w = k_warp_grad(i1, flow, i0, emit_warped=True)
     torch.cuda.synchronize()
     torch.testing.assert_close(g, g_ref, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(it, it_ref, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(w, i1w, atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("quantize", [False, True])
@@ -110,13 +168,31 @@ def test_kernels_reject_bad_inputs(dev):
         k_warp_grad(du[0], du, du[1].cpu())
 
 
-def test_compute_flow_kernels_match_plain_and_launch(dev):
+# name -> (params at 32^3, the kernels its path must launch); every other
+# counter must stay at 0.
+PATHS = {
+    "ladder": (FlowParams(levels=2, warps=3, inner_iterations=3, sweeps=20),
+               {"sor_halfsweep", "warp_grad", "median3"}),
+    "accurate": (PRESETS["accurate"].replace(levels=2, warps=3),
+                 {"warp_grad_tricubic", "sor_gc", "median3"}),
+    "accurate_gamma": (PRESETS["accurate"].replace(levels=2, warps=3,
+                                                   gamma=1.0),
+                       {"warp_grad_tricubic", "sor_gc", "median3"}),
+    "gamma": (FlowParams(levels=2, warps=3, inner_iterations=3, sweeps=20,
+                         gamma=1.0),
+              {"warp_grad", "sor_gc", "median3"}),
+}
+
+
+@pytest.mark.parametrize("name", list(PATHS))
+def test_compute_flow_kernels_match_plain_and_launch(dev, name):
+    p, launched = PATHS[name]
     shape = (32, 32, 32)
     i0, i1, true = syn.make_pair(shape, syn.translation((1.5, -1.0, 0.75)))
-    p = FlowParams(levels=2, warps=3, inner_iterations=3, sweeps=20)
     kernels.reset_launches()
     got = compute_flow(i0, i1, p, device=dev)
-    assert all(n > 0 for n in kernels.LAUNCHES.values()), kernels.LAUNCHES
+    assert {k for k, n in kernels.LAUNCHES.items() if n > 0} == launched, \
+        kernels.LAUNCHES
     ref = compute_flow(i0, i1, p.replace(backend="plain"), device=dev)
     torch.testing.assert_close(got, ref, atol=2e-4, rtol=1e-3)
     mask = syn.gradient_mask(i0, 0.75) & syn.interior_mask(shape, 4)

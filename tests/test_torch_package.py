@@ -1,7 +1,8 @@
 """Package-level properties of tpuflow3d_torch: it imports with JAX
 blocked and names neither jax nor tpuflow3d; no fallback from kernels to
-plain; unsupported settings raise; the synthetic-data copy is bitwise the
-reference's; and the kernel build fails loudly without nvcc."""
+plain; unsupported settings raise and the ported ones run; the
+synthetic-data copy is bitwise the reference's; and the kernel build fails
+loudly without nvcc."""
 
 import os
 import re
@@ -14,9 +15,11 @@ import pytest
 import torch
 
 from tpuflow3d import synthetic as ref_syn
-from tpuflow3d_torch import FlowParams, compute_flow, kernels
+from tpuflow3d.params import PRESETS as REF_PRESETS
+from tpuflow3d_torch import PRESETS, FlowParams, compute_flow, kernels
 from tpuflow3d_torch import synthetic as syn
-from tpuflow3d_torch.backend import check_supported
+from tpuflow3d_torch.backend import check_supported, unsupported
+from tpuflow3d_torch.params import from_reference
 
 torch.set_num_threads(2)
 
@@ -71,7 +74,6 @@ def test_device_argument():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(solver="multigrid"), dict(interp="tricubic"), dict(gamma=1.0),
     dict(deriv_order=4), dict(terms_dtype="bfloat16"),
     dict(dtype="bfloat16")], ids=lambda kw: "-".join(map(str, kw.values())))
 def test_unsupported_settings_raise(kw):
@@ -82,10 +84,44 @@ def test_unsupported_settings_raise(kw):
                                               **kw), device="cpu")
 
 
+@pytest.mark.parametrize("kw", [
+    dict(solver="multigrid"), dict(interp="tricubic"), dict(gamma=1.0)],
+    ids=lambda kw: "-".join(map(str, kw.values())))
+def test_ported_settings_run(kw):
+    """Settings that raised before multigrid, tricubic and gamma were
+    ported now run, on any backend, to a finite flow."""
+    i0, i1, _ = syn.make_pair((8, 8, 8), syn.translation((0.5, 0.0, 0.5)))
+    for backend in ("auto", "plain"):
+        p = FlowParams(levels=1, warps=2, inner_iterations=2, sweeps=4,
+                       backend=backend, **kw)
+        flow = compute_flow(i0, i1, p, device="cpu")
+        assert flow.shape == (3, 8, 8, 8)
+        assert bool(torch.isfinite(flow).all()) and float(flow.abs().max()) > 0
+
+
 def test_packed_layout_runs_plain_on_cpu():
     """The packed layout is a kernel layout: on CPU tensors the plain
     versions serve it; it raises only where kernels would run (CUDA)."""
     check_supported(FlowParams(sweep_layout="packed"), torch.zeros(1))
+
+
+def test_reference_accurate_preset_is_served_on_the_kernel_route():
+    """The reference's ``accurate`` preset keeps its default packed layout,
+    which the JAX package never sweeps under multigrid: the check passes
+    where the kernels run. Packed SOR there still raises (K4; K7 with
+    gamma), and both reference accurate presets map onto the port's."""
+    acc = from_reference(REF_PRESETS["accurate"])
+    assert acc.sweep_layout == "packed" and acc.solver == "multigrid"
+    assert unsupported(acc, kernels=True) == []
+    assert acc.replace(sweep_layout="flat") == PRESETS["accurate"]
+    for gamma, k in ((0.0, "K4"), (1.0, "K7")):
+        sor = acc.replace(solver="sor", gamma=gamma)
+        assert unsupported(sor, kernels=False) == []
+        (msg,) = unsupported(sor, kernels=True)
+        assert "packed" in msg and f"ROADMAP queue 2, {k}" in msg
+    (msg,) = unsupported(from_reference(REF_PRESETS["accurate-bf16"]),
+                         kernels=True)
+    assert "item 5" in msg
 
 
 @pytest.mark.parametrize("texture", ["blobs", "fourier"])
@@ -129,7 +165,19 @@ def test_library_path_follows_sources():
     assert path.parent.parts[-2:] == ("build", "tpuflow3d_torch")
     assert re.fullmatch(r"lib[0-9a-f]{16}\.so", path.name)
     assert {p.name for p in kernels.CSRC_DIR.glob("*.cu")} == {
-        "sor.cu", "warp_grad.cu", "median3.cu"}
+        "sor.cu", "warp_grad.cu", "median3.cu", "sor_gc.cu"}
+
+
+def test_kernels_build_without_fma_contraction(monkeypatch):
+    """The kernels must round as their plain versions (the ``accurate``
+    path amplifies last-bit differences), so nvcc may not fuse a multiply
+    and an add, and the flag is part of the library's hash."""
+    assert "-fmad=false" in kernels.NVCC_FLAGS
+    assert "--use_fast_math" not in kernels.NVCC_FLAGS
+    path = kernels.library_path()
+    monkeypatch.setattr(kernels, "NVCC_FLAGS", tuple(
+        f for f in kernels.NVCC_FLAGS if f != "-fmad=false"))
+    assert kernels.library_path() != path
 
 
 def test_launch_counters_reset():

@@ -1,14 +1,17 @@
 """The port's compute_flow (plain versions, on the CPU) against
 tpuflow3d.compute_flow on the cases of tests/test_pipeline.py, scaled to
 32^3 with two pyramid levels: translation, rotation, sinusoid on Fourier
-texture, median off with clamp 3, non-divisible Z, and Jacobi; plus the
-residual_tol early stop and track_residuals. Both packages must also meet
-the same EPE thresholds.
+texture, median off with clamp 3, non-divisible Z, and Jacobi; the
+``accurate`` preset (multigrid, tricubic, early stop, clamp 2) with 2
+levels and 3 warps, with and without gradient constancy; gradient
+constancy on SOR; tricubic on SOR; plus the residual_tol early stop and
+track_residuals, on SOR and on multigrid. Both packages must also meet the
+same EPE thresholds.
 
 Flow tolerance atol 5e-5, rtol 1e-4: about four times the largest
-difference measured over these cases (1.3e-5, sinusoid; the others stay
-under 4e-6), and tighter than the JAX package's own sharded-vs-unsharded
-gate (2e-4, 1e-3)."""
+difference measured over these cases (1.3e-5, sinusoid; 1.1e-5,
+``accurate`` with gamma; the others stay under 5e-6), and tighter than the
+JAX package's own sharded-vs-unsharded gate (2e-4, 1e-3)."""
 
 import numpy as np
 import pytest
@@ -17,6 +20,7 @@ import torch
 from tpuflow3d import FlowParams as RefParams
 from tpuflow3d import compute_flow as ref_compute_flow
 from tpuflow3d import synthetic as syn
+from tpuflow3d.params import PRESETS as REF_PRESETS
 from tpuflow3d_torch import compute_flow
 from tpuflow3d_torch.params import from_reference
 
@@ -26,6 +30,7 @@ TOL = dict(atol=5e-5, rtol=1e-4)
 P32 = RefParams(levels=2, scale_factor=0.5, warps=3, inner_iterations=3,
                 sweeps=20, alpha=0.05)
 S = (32, 32, 32)
+ACC32 = REF_PRESETS["accurate"].replace(levels=2, warps=3)
 
 # name -> (shape, flow_fn, params, texture, EPE threshold)
 CASES = {
@@ -43,6 +48,15 @@ CASES = {
                        P32.replace(z_multiple=8), "blobs", 0.1),
     "jacobi": (S, syn.translation((0.8, -0.6, 0.4)),
                P32.replace(solver="jacobi", sweeps=120), "blobs", 0.2),
+    "accurate": (S, syn.translation((1.5, -1.0, 0.75)), ACC32, "blobs",
+                 0.05),
+    "accurate_gamma": (S, syn.translation((1.5, -1.0, 0.75)),
+                       ACC32.replace(gamma=1.0), "blobs", 0.05),
+    "gamma": (S, syn.translation((1.5, -1.0, 0.75)), P32.replace(gamma=1.0),
+              "blobs", 0.05),
+    "tricubic_clamp": (S, syn.translation((1.5, -1.0, 0.75)),
+                       P32.replace(interp="tricubic", flow_clamp=2.0),
+                       "blobs", 0.05),
 }
 
 
@@ -69,9 +83,19 @@ def test_compute_flow_matches_reference(name):
 
 
 def test_residual_tol_and_tracked_residuals_match_reference():
+    _check_tracked_residuals(P32)
+
+
+def test_multigrid_tracked_residuals_match_reference():
+    """Per-cycle update norms, in the first mg_cycles slots of each inner
+    iteration's sweeps-wide stretch."""
+    _check_tracked_residuals(P32.replace(solver="multigrid"))
+
+
+def _check_tracked_residuals(rp):
     i0, i1, _ = syn.make_pair(S, syn.translation((1.0, 0.0, -0.5)), seed=0)
     (ref, rdiag), (got, pdiag) = _both(
-        i0, i1, P32.replace(residual_tol=1e-4, track_residuals=True),
+        i0, i1, rp.replace(residual_tol=1e-4, track_residuals=True),
         diagnostics=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
     rres, pres = np.asarray(rdiag["residuals"]), pdiag["residuals"].numpy()
