@@ -13,7 +13,16 @@
    warped volume; K3 3x3x3 median; K5 fused tricubic warp + derivatives at
    flows +-2 and +-6, with and without the warped volume; K6 general-SPD
    SOR half-sweep on gradient-constancy terms, with (alpha, alpha, alpha)
-   and with an anisotropic multigrid triple.
+   and with an anisotropic multigrid triple; K4 and K7, the colour-packed
+   forms of K1 and K6, at (3, 256, 256, 128); and the bfloat16-terms
+   instantiations of K1, K4, K6 and K7 on the same terms stored in
+   bfloat16. Beside each time stands the kernel's bound: the least time
+   the card could take, the larger of its bytes (inputs read once, outputs
+   written once) over 3.35 TB/s and the operations the function needs over
+   the card's float32 rate. For the flat sweeps also the bytes a half-sweep
+   needs (the inactive colour's c, g or ainv and psi_d left out). Also
+   times pack_color and unpack_colors, the overhead of the packed layout
+   per inner iteration.
 4. Drives ``tpuflow3d_torch.compute_flow`` with ``PRESETS["ladder256"]`` on
    a 256^3 blob translation, once through the kernels (backend "auto") and
    once plain; checks that the path's kernels (K1, K2, K3) and no other
@@ -24,6 +33,14 @@
    the device time by kernel.
 6. The same for ``PRESETS["ladder256"]`` with gamma = 1 (gradient
    constancy on SOR: K2 emitting the warped volume, K6, K3).
+7. The same for ``PRESETS["ladder256"]`` with ``sweep_layout="packed"``
+   (the reference's default layout: K4 in place of K1, 1800 launches).
+8. The same with gamma = 1 as well (K7 in place of K6, 1800 launches).
+9. The same for ``PRESETS["accurate-bf16"]`` (``accurate`` with c and g
+   stored in bfloat16: K5, the bfloat16 K6, K3), EPE < 1e-3 on both runs.
+10. Times the flat and the packed layout end to end in turns (flat, packed,
+   packed, flat; three turns), with and without gamma, and prints the
+   median of each; the packed path also gets the profiler split.
 
 Every failure raises, so the exit code is non-zero. The last two lines are
 a JSON summary of the kernels and {"ok": true, "device": {...}}. Imports
@@ -45,7 +62,32 @@ SHIFT = (1.5, -1.0, 0.75)
 FLOW_ATOL, FLOW_RTOL = 2e-4, 1e-3
 TOLS = {"sor_halfsweep": (5e-5, 1e-5), "warp_grad": (1e-5, 1e-5),
         "median3": (0.0, 0.0), "warp_grad_tricubic": (1e-5, 1e-5),
-        "sor_gc": (5e-5, 1e-5)}
+        "sor_gc": (5e-5, 1e-5), "sor_packed": (5e-5, 1e-5),
+        "sor_gc_packed": (5e-5, 1e-5)}
+# The card's peaks (NVIDIA's H100 SXM data sheet): device memory and
+# float32 arithmetic outside the tensor cores.
+PEAK_BYTES_PER_S, PEAK_FLOP_PER_S = 3.35e12, 67e12
+# kernel -> (operations the function needs per output element, the card's
+# rate for them). The sweeps per updated voxel (six neighbours at 9, or 8
+# without the weight sum, plus the point solve) and the fused warps per
+# voxel (coordinates, taps, stencils; one sample per voxel) are
+# multiplications and additions, rated at the FMA peak, which counts two
+# per instruction. The median per output value: 39 comparisons, the proven
+# least that select the median of 27 values (n + min(t - 1, n - t) - 1 for
+# the t-th of n; Blum, Floyd, Pratt, Rivest, Tarjan 1973), one per
+# instruction. Neighbouring voxels share 18 of their 27 values, so shared
+# work could only lower that count: bytes bound the median either way.
+OPS = {"sor_halfsweep": (86, PEAK_FLOP_PER_S),
+       "sor_packed": (86, PEAK_FLOP_PER_S),
+       "sor_gc": (72, PEAK_FLOP_PER_S),
+       "sor_gc_packed": (72, PEAK_FLOP_PER_S),
+       "warp_grad": (40, PEAK_FLOP_PER_S),
+       "warp_grad_tricubic": (265, PEAK_FLOP_PER_S),
+       "median3": (39, PEAK_FLOP_PER_S / 2)}
+# What csrc/median3.cu's own selection network executes per output value:
+# 195 compare-exchanges of one min and one max. Not part of the bound (a
+# cheaper selection computes the same function); printed beside it.
+MEDIAN3_NETWORK_OPS = 390
 SOURCES = {
     "sor_halfsweep": ("src/tpuflow3d_torch/csrc/sor.cu",
                       "src/tpuflow3d/pallas/sor.py:200"),
@@ -57,24 +99,46 @@ SOURCES = {
                            "src/tpuflow3d/pallas/warp_grad.py:292"),
     "sor_gc": ("src/tpuflow3d_torch/csrc/sor_gc.cu",
                "src/tpuflow3d/pallas/sor_gc.py:95"),
+    "sor_packed": ("src/tpuflow3d_torch/csrc/sor_packed.cu",
+                   "src/tpuflow3d/pallas/sor_packed.py:164"),
+    "sor_gc_packed": ("src/tpuflow3d_torch/csrc/sor_gc_packed.cu",
+                      "src/tpuflow3d/pallas/sor_gc_packed.py:102"),
 }
 # kernel -> a part of its device function's name in a profiler trace.
-KERNEL_SYMBOLS = {"sor_halfsweep": "::sor_halfsweep_kernel(",
+KERNEL_SYMBOLS = {"sor_halfsweep": "::sor_halfsweep_kernel<",
                   "warp_grad": "::warp_grad_kernel<false>",
                   "median3": "::median3_kernel(",
                   "warp_grad_tricubic": "::warp_grad_kernel<true>",
-                  "sor_gc": "::sor_halfsweep_gc_kernel("}
-# path -> (preset, changes, the kernels it must launch, EPE limit). The
-# JAX package's TPU records: ladder256 0.0179 on its bench input; accurate
-# 3.4e-4 and its accuracy gate 1e-3.
+                  "sor_gc": "::sor_halfsweep_gc_kernel<",
+                  "sor_packed": "::sor_halfsweep_packed_kernel<",
+                  "sor_gc_packed": "::sor_halfsweep_gc_packed_kernel<"}
+# path -> (preset, changes, the kernels it must launch, EPE limit). A kernel
+# maps to the launch count the path must show exactly, or to None for any
+# count above 0; 1800 is 5 levels (all of even W) x 3 warps x 3 inner
+# iterations x 20 sweeps x 2 colours. The JAX package's TPU records:
+# ladder256 0.0179 on its bench input; accurate 3.4e-4 and its accuracy
+# gate 1e-3.
 PATHS = {
-    "ladder256": ("ladder256", {}, {"sor_halfsweep", "warp_grad", "median3"},
+    "ladder256": ("ladder256", {},
+                  {"sor_halfsweep": None, "warp_grad": None, "median3": None},
                   0.03),
-    "accurate": ("accurate", {}, {"warp_grad_tricubic", "sor_gc", "median3"},
-                 1e-3),
-    "gamma": ("ladder256", {"gamma": 1.0}, {"warp_grad", "sor_gc", "median3"},
-              0.03),
+    "accurate": ("accurate", {},
+                 {"warp_grad_tricubic": None, "sor_gc": None,
+                  "median3": None}, 1e-3),
+    "gamma": ("ladder256", {"gamma": 1.0},
+              {"warp_grad": None, "sor_gc": None, "median3": None}, 0.03),
+    "packed": ("ladder256", {"sweep_layout": "packed"},
+               {"sor_packed": 1800, "warp_grad": None, "median3": None},
+               0.03),
+    "packed_gamma": ("ladder256", {"sweep_layout": "packed", "gamma": 1.0},
+                     {"sor_gc_packed": 1800, "warp_grad": None,
+                      "median3": None}, 0.03),
+    "accurate-bf16": ("accurate-bf16", {},
+                      {"warp_grad_tricubic": None, "sor_gc": None,
+                       "median3": None}, 1e-3),
 }
+# Turns of (flat, packed, packed, flat) in the end-to-end layout comparison.
+LAYOUT_TURNS = 3
 
 
 def log(*a):
@@ -103,6 +167,25 @@ def cuda_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def tensor_bytes(*tensors) -> int:
+    """Bytes of the tensors among the arguments (None and scalars skipped)."""
+    return sum(t.numel() * t.element_size() for t in tensors
+               if hasattr(t, "element_size"))
+
+
+def bound(name: str, nbytes: int, elements: int) -> dict:
+    """The least time the card could take for a kernel's work: its bytes
+    over the memory rate or the operations it needs over their rate,
+    whichever is larger."""
+    by_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
+    ops, rate = OPS[name]
+    by_ops = 1e3 * ops * elements / rate
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bound_bytes_ms": by_bytes, "bound_operations_ms": by_ops,
+            "bytes": nbytes}
 
 
 def compare(torch, name, got, ref) -> float:
@@ -191,6 +274,12 @@ def main() -> None:
     from tpuflow3d_torch.kernels.median3 import median3 as k_median3
     from tpuflow3d_torch.kernels.sor import sor_halfsweep as k_sor
     from tpuflow3d_torch.kernels.sor_gc import sor_halfsweep_gc as k_sor_gc
+    from tpuflow3d_torch.kernels.sor_gc_packed import (
+        sor_halfsweep_gc_packed as k_sor_gc_packed,
+        sor_halfsweep_gc_packed_plain)
+    from tpuflow3d_torch.kernels.sor_packed import (
+        pack_color, sor_halfsweep_packed as k_sor_packed,
+        sor_halfsweep_packed_plain, unpack_colors)
     from tpuflow3d_torch.kernels.warp_grad import warp_grad as k_warp_grad
     from tpuflow3d_torch.median import median3
     from tpuflow3d_torch.mgsolver import _weights
@@ -234,78 +323,199 @@ def main() -> None:
         g, it = derivatives(v0, i1w, ctx)
         return (g, it, i1w) if emit else (g, it)
 
-    # name -> (kernel, plain): each returns the tensors to compare and is
-    # timed as one call of the kernel's wrapper / plain version.
-    results = {}
+    # case -> (kernel, plain, bytes, elements[, needed bytes]): kernel and
+    # plain each return the tensors to compare and are timed as one call of
+    # the kernel's wrapper / plain version; bytes are the inputs read once
+    # plus the outputs written once, elements what OPS counts per (updated
+    # voxels, voxels, output values); needed bytes, for a flat sweep, are
+    # those a half-sweep cannot do without. The part of a case's name
+    # before the first "/" is its kernel; "bf16" marks the bfloat16-terms
+    # instantiation.
+    n_vox = SHAPE[0] * SHAPE[1] * SHAPE[2]
+    plane = 4 * SHAPE[1] * SHAPE[2]  # bytes of one float32 Z plane
+    summary = {}
+
+    def run_cases(cases):
+        for case, (kern, plain, nbytes, elements, *needed) in cases.items():
+            parts = case.split("/")
+            name, suffix = parts[0], "_bf16" if "bf16" in parts else ""
+            got, ref = kern(), plain()
+            torch.cuda.synchronize()
+            err = compare(torch, name, got, ref)
+            del got, ref
+            ms, plain_ms = cuda_ms(torch, kern), cuda_ms(torch, plain)
+            b = bound(name, nbytes, elements)
+            extra = {}
+            if needed:
+                extra["needed_bytes_ms"] = 1e3 * needed[0] / PEAK_BYTES_PER_S
+                note = (f"; needed {needed[0] / n_vox:.1f} B/voxel: "
+                        f"{extra['needed_bytes_ms']:.3f} ms")
+            elif name == "median3":
+                extra["network_operations_ms"] = (
+                    1e3 * MEDIAN3_NETWORK_OPS * elements / OPS[name][1])
+                note = (f"; its own network's {MEDIAN3_NETWORK_OPS} min/max "
+                        f"{extra['network_operations_ms']:.3f} ms")
+            else:
+                note = ""
+            log(f"[kernel] {case}: max |kernel - plain| {err:.3e} (atol "
+                f"{TOLS[name][0]}), kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+                f"ms, bound {b['bound_ms']:.3f} ms by {b['bound_by']} "
+                f"({nbytes / n_vox:.1f} B/voxel: {b['bound_bytes_ms']:.3f} "
+                f"ms; operations {b['bound_operations_ms']:.3f} ms{note})")
+            # One entry per kernel: the worst error, and the times and the
+            # bound of its first case (of its first bfloat16 case, under
+            # keys ending in _bf16).
+            entry = summary.setdefault(name, {"max_abs_err": 0.0})
+            entry["max_abs_err"] = max(err, entry["max_abs_err"])
+            for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                             ("bound_ms", b["bound_ms"]),
+                             ("bound_by", b["bound_by"]),
+                             ("bound_bytes_ms", b["bound_bytes_ms"]),
+                             ("bound_operations_ms",
+                              b["bound_operations_ms"]), *extra.items()):
+                entry.setdefault(key + suffix, val)
+
+    # K2 and K5: the fused warps.
     flow6 = cuda_rand(6.0, (3, *SHAPE), "uniform")
     flow2 = cuda_rand(2.0, (3, *SHAPE), "uniform")
-    results["warp_grad"] = (
+
+    def warp_bytes(emit):
+        return tensor_bytes(v1, flow6, v0) + (5 if emit else 4) * 4 * n_vox
+
+    cases = {}
+    cases["warp_grad"] = (
         lambda: k_warp_grad(v1, flow6, v0, ctx),
-        lambda: plain_warp_grad(flow6, "trilinear", False))
-    results["warp_grad/emit"] = (
+        lambda: plain_warp_grad(flow6, "trilinear", False),
+        warp_bytes(False), n_vox)
+    cases["warp_grad/emit"] = (
         lambda: k_warp_grad(v1, flow6, v0, ctx, emit_warped=True),
-        lambda: plain_warp_grad(flow6, "trilinear", True))
+        lambda: plain_warp_grad(flow6, "trilinear", True),
+        warp_bytes(True), n_vox)
     for tag, fl in (("2", flow2), ("6", flow6)):
         for emit in (False, True):
-            results[f"warp_grad_tricubic/{tag}{'/emit' if emit else ''}"] = (
+            cases[f"warp_grad_tricubic/{tag}{'/emit' if emit else ''}"] = (
                 lambda fl=fl, emit=emit: k_warp_grad(
                     v1, fl, v0, ctx, interp="tricubic", emit_warped=emit),
                 lambda fl=fl, emit=emit: plain_warp_grad(fl, "tricubic",
-                                                         emit))
+                                                         emit),
+                warp_bytes(emit), n_vox)
+    run_cases(cases)
+    del cases, flow6, flow2
 
+    # The sweeps: K1 and K6 flat, K4 and K7 packed, on the same terms, stored
+    # in float32 and in bfloat16.
     flow = cuda_rand(0.1, (3, *SHAPE))
     du = cuda_rand(0.05, (3, *SHAPE))
     i1w = warp_volume(v1, flow, ctx)
     g, it = derivatives(v0, i1w, ctx)
-    terms = compute_terms(g, it, flow, du, p, ctx)
-    parity = parity_mask(SHAPE, ctx, dev)
-    for color in (0, 1):
-        results[f"sor_halfsweep/{color}"] = (
-            lambda c=color: [k_sor(du, terms, p.alpha, p.omega, c, ctx)],
-            lambda c=color: [sor_halfsweep(du, terms, p.omega, parity, c,
-                                           ctx)])
-
+    gc = grad_constancy_terms(v0, i1w, ctx, g=g)
     pg = p.replace(gamma=1.0)
-    gterms = compute_terms(g, it, flow, du, pg, ctx,
-                           gc=grad_constancy_terms(v0, i1w, ctx, g=g))
+    parity = parity_mask(SHAPE, ctx, dev)
+    halo_bytes = 8 * plane  # du (3 + 3 planes) and psi_s (1 + 1)
     # An anisotropic multigrid level's per-axis 1/h^2 scales.
     scale = (1.0, 0.25, 0.0625)
-    aterms = gterms._replace(w=_weights(gterms.psi_s, scale, p.alpha, ctx)[0])
-    for tag, tt, alphas in (
-            ("iso", gterms, (p.alpha,) * 3),
-            ("aniso", aterms, tuple(p.alpha * s for s in scale))):
-        for color in (0, 1):
-            results[f"sor_gc/{tag}/{color}"] = (
-                lambda c=color, tt=tt, al=alphas: [
-                    k_sor_gc(du, tt, al, p.omega, c, ctx)],
-                lambda c=color, tt=tt: [sor_halfsweep(du, tt, p.omega,
-                                                      parity, c, ctx)])
 
+    def flat_bytes(*fields):
+        """Bytes of a flat half-sweep as its arguments have them, and the
+        bytes it needs: du, the halo planes and the output whole, psi_s
+        (the first field) whole, the other fields for the active colour
+        only."""
+        whole = 2 * tensor_bytes(du) + halo_bytes
+        return (whole + tensor_bytes(*fields),
+                whole + tensor_bytes(fields[0])
+                + tensor_bytes(*fields[1:]) // 2)
+
+    def packed_args(t, color):
+        """The arguments of a packed half-sweep of ``color`` on du and the
+        terms t: K7's when t carries ainv, else K4's."""
+        other = 1 - color
+        pk = lambda a, c: pack_color(a, c, 0)
+        duo, pso = pk(du, other), pk(t.psi_s, other)
+        mid, tail = ((t.c, t.g), (t.psi_d,)) if t.ainv is None else (
+            (t.c, t.ainv), ())
+        return (pk(du, color), duo, *(pk(a, color) for a in mid),
+                pk(t.psi_s, color), pso, *(pk(a, color) for a in tail),
+                *ctx.z_halo_planes(duo), *ctx.z_halo_planes(pso), 0, p.alpha,
+                p.omega, color, SHAPE[0])
+
+    for terms_dtype in ("float32", "bfloat16"):
+        tag = "" if terms_dtype == "float32" else "/bf16"
+        pt = p.replace(terms_dtype=terms_dtype)
+        terms = compute_terms(g, it, flow, du, pt, ctx)
+        gterms = compute_terms(g, it, flow, du, pt.replace(gamma=1.0), ctx,
+                               gc=gc)
+        cases = {}
+        nbytes, needed = flat_bytes(terms.psi_s, terms.c, terms.g,
+                                    terms.psi_d)
+        for color in (0, 1):
+            cases[f"sor_halfsweep{tag}/{color}"] = (
+                lambda c=color: [k_sor(du, terms, p.alpha, p.omega, c, ctx)],
+                lambda c=color: [sor_halfsweep(du, terms, p.omega, parity, c,
+                                               ctx)],
+                nbytes, n_vox // 2, needed)
+        variants = [("iso", gterms, (p.alpha,) * 3)]
+        if terms_dtype == "float32":
+            aterms = gterms._replace(
+                w=_weights(gterms.psi_s, scale, p.alpha, ctx)[0])
+            variants.append(("aniso", aterms,
+                             tuple(p.alpha * s for s in scale)))
+        for vtag, tt, alphas in variants:
+            nbytes, needed = flat_bytes(tt.psi_s, tt.c, tt.ainv)
+            for color in (0, 1):
+                cases[f"sor_gc{tag}/{vtag}/{color}"] = (
+                    lambda c=color, tt=tt, al=alphas: [
+                        k_sor_gc(du, tt, al, p.omega, c, ctx)],
+                    lambda c=color, tt=tt: [sor_halfsweep(du, tt, p.omega,
+                                                          parity, c, ctx)],
+                    nbytes, n_vox // 2, needed)
+        run_cases(cases)
+        del cases, variants
+        for name, tt, kern, plain in (
+                ("sor_packed", terms, k_sor_packed, sor_halfsweep_packed_plain),
+                ("sor_gc_packed", gterms, k_sor_gc_packed,
+                 sor_halfsweep_gc_packed_plain)):
+            for color in (0, 1):
+                args = packed_args(tt, color)
+                run_cases({f"{name}{tag}/{color}": (
+                    lambda: [kern(*args)], lambda: [plain(*args)],
+                    tensor_bytes(*args) + tensor_bytes(args[0]),
+                    n_vox // 2)})
+                del args
+        if terms_dtype == "float32":
+            # What the packed layout pays per inner iteration: packing du
+            # and the sweep constants for both colours, and one unpack.
+            for name, fields in (
+                    ("K4", (du, terms.c, terms.g, terms.psi_s, terms.psi_d)),
+                    ("K7", (du, gterms.c, gterms.ainv, gterms.psi_s))):
+                ms = cuda_ms(torch, lambda: [pack_color(a, c, 0)
+                                             for c in (0, 1) for a in fields])
+                log(f"[layout] pack_color of {len(fields)} fields ({name}: "
+                    f"{tensor_bytes(*fields) / n_vox:.0f} B/voxel), both "
+                    f"colours: {ms:.3f} ms")
+            pair = [pack_color(du, c, 0) for c in (0, 1)]
+            ms = cuda_ms(torch, lambda: unpack_colors(*pair, 0))
+            log(f"[layout] unpack_colors of du: {ms:.3f} ms")
+            if not torch.equal(unpack_colors(*pair, 0), du):
+                raise AssertionError("unpack_colors(pack_color(du)) != du")
+            del pair, aterms
+        del terms, gterms, tt
+        torch.cuda.empty_cache()
+    del flow, du, g, it, i1w, gc, parity
+
+    # K3: the median.
     x = cuda_rand(1.0, (3, *SHAPE))
     xq = torch.round(x * 4.0) / 4.0  # quantized: many ties
-    results["median3"] = (lambda: [k_median3(x, ctx)],
-                          lambda: [median3(x, ctx)])
-    results["median3/ties"] = (lambda: [k_median3(xq, ctx)],
-                               lambda: [median3(xq, ctx)])
-
-    summary = {}
-    for case, (kern, plain) in results.items():
-        name = case.split("/")[0]
-        got, ref = kern(), plain()
-        torch.cuda.synchronize()
-        err = compare(torch, name, got, ref)
-        ms, plain_ms = cuda_ms(torch, kern), cuda_ms(torch, plain)
-        log(f"[kernel] {case}: max |kernel - plain| {err:.3e} (atol "
-            f"{TOLS[name][0]}), kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-        if name in summary:  # one entry per kernel: the worst error
-            err = max(err, summary[name]["max_abs_err"])
-            ms, plain_ms = summary[name]["ms"], summary[name]["plain_ms"]
-        summary[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-    del (results, flow6, flow2, flow, du, g, it, i1w, terms, gterms, aterms,
-         x, xq, pyr0, pyr1, v0, v1)
+    median_bytes = 2 * tensor_bytes(x) + 6 * plane  # x, lo, hi; out
+    run_cases({
+        "median3": (lambda: [k_median3(x, ctx)], lambda: [median3(x, ctx)],
+                    median_bytes, 3 * n_vox),
+        "median3/ties": (lambda: [k_median3(xq, ctx)],
+                         lambda: [median3(xq, ctx)], median_bytes,
+                         3 * n_vox)})
+    del x, xq, pyr0, pyr1, v0, v1
     torch.cuda.empty_cache()
 
-    # 4-6. The main paths, each through the kernels, then plain.
+    # 4-9. The main paths, each through the kernels, then plain.
     mask = syn.gradient_mask(i0, 0.75) & syn.interior_mask(SHAPE, 4)
     launches = {}
     for phase, (path, (preset, changes, expected, epe_limit)) in enumerate(
@@ -327,9 +537,13 @@ def main() -> None:
         log(f"{tag} 256^3: kernels {t_auto:.2f} s, plain {t_plain:.2f} s; "
             f"launches {launches[path]}")
         ran = {k for k, n in launches[path].items() if n > 0}
-        if ran != expected:
+        if ran != set(expected):
             raise AssertionError(f"{path} launched {sorted(ran)}, expected "
                                  f"{sorted(expected)}")
+        for name, count in expected.items():
+            if count is not None and launches[path][name] != count:
+                raise AssertionError(f"{path}: {launches[path][name]} "
+                                     f"launches of {name}, expected {count}")
         for f in (f_auto, f_plain):
             if tuple(f.shape) != (3, *SHAPE) or not bool(
                     torch.isfinite(f).all()):
@@ -351,8 +565,31 @@ def main() -> None:
             raise AssertionError(f"{path}: EPE {e_auto} vs plain {e_plain}, "
                                  f"limit {epe_limit}")
         del f_auto, f_plain, diff
-        if path == "accurate":
+        if path in ("accurate", "packed"):
             profile_split(torch, lambda: compute_flow(i0, i1, pp, device=dev))
+        torch.cuda.empty_cache()
+
+    # 10. The two sweep layouts end to end, in turns on this card: host clock
+    # around compute_flow from numpy volumes to a synchronized device.
+    def wall(pp):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        compute_flow(i0, i1, pp, device=dev)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    for flat, packed in (("ladder256", "packed"), ("gamma", "packed_gamma")):
+        pf, pk = (PRESETS[PATHS[k][0]].replace(**PATHS[k][1])
+                  for k in (flat, packed))
+        times = {flat: [], packed: []}
+        for _ in range(LAYOUT_TURNS):
+            for key, pp in ((flat, pf), (packed, pk), (packed, pk),
+                            (flat, pf)):
+                times[key].append(wall(pp))
+        log("[10:layouts] " + "; ".join(
+            f"{key} median {statistics.median(ts):.4f} s (min "
+            f"{min(ts):.4f}, max {max(ts):.4f}, {len(ts)} runs)"
+            for key, ts in times.items()))
         torch.cuda.empty_cache()
 
     log(card)
@@ -361,6 +598,9 @@ def main() -> None:
          "replaces": SOURCES[name][1],
          "launches": sum(launches[path][name] for path in PATHS),
          "launches_by_path": {path: launches[path][name] for path in PATHS},
+         # No single PyTorch call computes a red-black half-sweep, the fused
+         # warp + derivatives or a 27-point median.
+         "library_ms": None,
          **summary[name]} for name in SOURCES]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -30,27 +30,31 @@ def use_kernels(p: FlowParams, x: torch.Tensor) -> bool:
                        f"pass backend='plain' to run the plain versions")
 
 
-def unsupported(p: FlowParams, kernels: bool) -> list[str]:
-    """The settings of ``p`` this port does not serve yet, each naming its
-    ROADMAP item; ``kernels`` says whether the CUDA kernels would run."""
+def unsupported(p: FlowParams) -> list[str]:
+    """The settings of ``p`` this port does not serve, each saying why, on
+    the kernel route and the plain one alike. One device serves every
+    float32 solve the reference serves: both sweep layouts, float32 or
+    bfloat16 term storage, stencils of order 2 and 4."""
     missing = []
-    if p.deriv_order != 2:
-        missing.append("deriv_order=4 (ROADMAP queue 1, item 4)")
-    if p.dtype != "float32" or p.terms_dtype != "float32":
-        missing.append(f"dtype={p.dtype!r}, terms_dtype={p.terms_dtype!r} "
-                       f"(ROADMAP queue 1, item 5)")
-    # The reference sweeps packed only on its SOR path (the multigrid
-    # smoother is always flat), so only that needs the packed kernels.
-    if p.sweep_layout == "packed" and p.solver == "sor" and kernels:
-        k = "K7" if p.gamma > 0.0 else "K4"
-        missing.append(f"sweep_layout='packed' with solver='sor' on CUDA "
-                       f"(ROADMAP queue 2, {k})")
+    if p.dtype != "float32":
+        missing.append(
+            f"dtype={p.dtype!r}: float32 is the reference's only solver "
+            f"dtype (it documents no other and has no test or record of "
+            f"one), and every kernel computes in float32; bfloat16 is "
+            f"served as storage of the sweep constants, "
+            f"terms_dtype='bfloat16' (ROADMAP queue 1, item 5)")
+    if p.terms_dtype not in ("float32", "bfloat16"):
+        missing.append(
+            f"terms_dtype={p.terms_dtype!r}: the sweep kernels read c and "
+            f"g stored in float32 or bfloat16 (ROADMAP queue 1, item 5)")
     return missing
 
 
 def check_supported(p: FlowParams, x: torch.Tensor) -> None:
-    """Raise NotImplementedError, naming its ROADMAP item, for every
-    setting this port does not serve yet (none is served by another path)."""
-    missing = unsupported(p, use_kernels(p, x))
+    """Raise NotImplementedError for every setting this port does not
+    serve (none is served by another path), and RuntimeError where the
+    backend cannot run on ``x``'s device."""
+    use_kernels(p, x)
+    missing = unsupported(p)
     if missing:
-        raise NotImplementedError("not ported yet: " + "; ".join(missing))
+        raise NotImplementedError("not served: " + "; ".join(missing))

@@ -22,16 +22,21 @@
 // neighbouring threads touch neighbouring addresses; neighbour reads of du
 // and psi_s hit L1/L2, so device memory sees each array about once.
 // Out-of-place, as the plain version: the inactive colour is copied.
+// c and g may be stored in bfloat16 (T; 44 B/voxel): they are widened as
+// they are loaded and the arithmetic stays in float32.
 
 #include <cuda_runtime.h>
+
+#include "terms.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads) sor_halfsweep_kernel(
-    const float* __restrict__ du, const float* __restrict__ c,
-    const float* __restrict__ g, const float* __restrict__ ps,
+    const float* __restrict__ du, const T* __restrict__ c,
+    const T* __restrict__ g, const float* __restrict__ ps,
     const float* __restrict__ pd,
     const float* __restrict__ du_lo, const float* __restrict__ du_hi,
     const float* __restrict__ ps_lo, const float* __restrict__ ps_hi,
@@ -64,7 +69,8 @@ __global__ void __launch_bounds__(kThreads) sor_halfsweep_kernel(
   const long long p = row + xa;
   const long long hp = (long long)y * W + xa;  // index within a halo plane
   const float psp = ps[p];
-  float b0 = c[p], b1 = c[N + p], b2 = c[2 * N + p];
+  float b0 = load_term(c, p), b1 = load_term(c, N + p);
+  float b2 = load_term(c, 2 * N + p);
   float sw = 0.f;
   auto add = [&](float psq, float d0, float d1, float d2) {
     const float w = half_alpha * (psp + psq);
@@ -89,7 +95,8 @@ __global__ void __launch_bounds__(kThreads) sor_halfsweep_kernel(
   if (xa < W - 1) add_at(p + 1);
   if (xa > 0) add_at(p - 1);
 
-  const float g0 = g[p], g1 = g[N + p], g2 = g[2 * N + p];
+  const float g0 = load_term(g, p), g1 = load_term(g, N + p);
+  const float g2 = load_term(g, 2 * N + p);
   const float pdp = pd[p];
   const float sw_inv = 1.f / sw;
   const float q = pdp * (g0 * g0 + g1 * g1 + g2 * g2);
@@ -103,19 +110,28 @@ __global__ void __launch_bounds__(kThreads) sor_halfsweep_kernel(
 
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// Launches on `stream` and returns cudaGetLastError() (0 on success). c and g
+// point to bfloat16 when terms_bf16 is non-zero, else to float32.
 extern "C" int tf3d_sor_halfsweep(
-    const float* du, const float* c, const float* g, const float* psi_s,
+    const float* du, const void* c, const void* g, const float* psi_s,
     const float* psi_d, const float* du_lo, const float* du_hi,
     const float* ps_lo, const float* ps_hi, float* out, int D, int H, int W,
     int z0, int dg, float half_alpha, float omega, float one_minus_omega,
-    int color, void* stream) {
+    int color, int terms_bf16, void* stream) {
   const long long npairs = (long long)D * H * ((W + 1) / 2);
   if (npairs == 0) return 0;
-  const long long blocks = (npairs + kThreads - 1) / kThreads;
-  sor_halfsweep_kernel<<<(unsigned)blocks, kThreads, 0,
-                         (cudaStream_t)stream>>>(
-      du, c, g, psi_s, psi_d, du_lo, du_hi, ps_lo, ps_hi, out, D, H, W, z0,
-      dg, half_alpha, omega, one_minus_omega, color);
+  const unsigned blocks = (unsigned)((npairs + kThreads - 1) / kThreads);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (terms_bf16) {
+    sor_halfsweep_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
+        du, (const __nv_bfloat16*)c, (const __nv_bfloat16*)g, psi_s, psi_d,
+        du_lo, du_hi, ps_lo, ps_hi, out, D, H, W, z0, dg, half_alpha, omega,
+        one_minus_omega, color);
+  } else {
+    sor_halfsweep_kernel<float><<<blocks, kThreads, 0, s>>>(
+        du, (const float*)c, (const float*)g, psi_s, psi_d, du_lo, du_hi,
+        ps_lo, ps_hi, out, D, H, W, z0, dg, half_alpha, omega,
+        one_minus_omega, color);
+  }
   return (int)cudaGetLastError();
 }

@@ -30,16 +30,21 @@
 // one thread per x-pair (one active and one copied voxel), neighbouring
 // threads on neighbouring addresses, neighbour reads of du and psi_s served
 // from L1/L2, out-of-place. Any D, H, W >= 1, odd W included (the coarse
-// multigrid grids are 4^3 to 8^3 with odd H and W).
+// multigrid grids are 4^3 to 8^3 with odd H and W). c may be stored in
+// bfloat16 (T; 58 B/voxel): it is widened as it is loaded; ainv stays
+// float32.
 
 #include <cuda_runtime.h>
+
+#include "terms.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads) sor_halfsweep_gc_kernel(
-    const float* __restrict__ du, const float* __restrict__ c,
+    const float* __restrict__ du, const T* __restrict__ c,
     const float* __restrict__ ainv, const float* __restrict__ ps,
     const float* __restrict__ du_lo, const float* __restrict__ du_hi,
     const float* __restrict__ ps_lo, const float* __restrict__ ps_hi,
@@ -72,7 +77,8 @@ __global__ void __launch_bounds__(kThreads) sor_halfsweep_gc_kernel(
   const long long p = row + xa;
   const long long hp = (long long)y * W + xa;  // index within a halo plane
   const float psp = ps[p];
-  float b0 = c[p], b1 = c[N + p], b2 = c[2 * N + p];
+  float b0 = load_term(c, p), b1 = load_term(c, N + p);
+  float b2 = load_term(c, 2 * N + p);
   auto add = [&](float h, float psq, float d0, float d1, float d2) {
     const float w = h * (psp + psq);
     b0 += w * d0;
@@ -108,19 +114,26 @@ __global__ void __launch_bounds__(kThreads) sor_halfsweep_gc_kernel(
 
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// Launches on `stream` and returns cudaGetLastError() (0 on success). c
+// points to bfloat16 when terms_bf16 is non-zero, else to float32.
 extern "C" int tf3d_sor_halfsweep_gc(
-    const float* du, const float* c, const float* ainv, const float* psi_s,
+    const float* du, const void* c, const float* ainv, const float* psi_s,
     const float* du_lo, const float* du_hi, const float* ps_lo,
     const float* ps_hi, float* out, int D, int H, int W, int z0, int dg,
     float hz, float hy, float hx, float omega, float one_minus_omega,
-    int color, void* stream) {
+    int color, int terms_bf16, void* stream) {
   const long long npairs = (long long)D * H * ((W + 1) / 2);
   if (npairs == 0) return 0;
-  const long long blocks = (npairs + kThreads - 1) / kThreads;
-  sor_halfsweep_gc_kernel<<<(unsigned)blocks, kThreads, 0,
-                            (cudaStream_t)stream>>>(
-      du, c, ainv, psi_s, du_lo, du_hi, ps_lo, ps_hi, out, D, H, W, z0, dg,
-      hz, hy, hx, omega, one_minus_omega, color);
+  const unsigned blocks = (unsigned)((npairs + kThreads - 1) / kThreads);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (terms_bf16) {
+    sor_halfsweep_gc_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
+        du, (const __nv_bfloat16*)c, ainv, psi_s, du_lo, du_hi, ps_lo, ps_hi,
+        out, D, H, W, z0, dg, hz, hy, hx, omega, one_minus_omega, color);
+  } else {
+    sor_halfsweep_gc_kernel<float><<<blocks, kThreads, 0, s>>>(
+        du, (const float*)c, ainv, psi_s, du_lo, du_hi, ps_lo, ps_hi, out, D,
+        H, W, z0, dg, hz, hy, hx, omega, one_minus_omega, color);
+  }
   return (int)cudaGetLastError();
 }

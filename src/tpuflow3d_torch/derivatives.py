@@ -1,9 +1,10 @@
 """Spatiotemporal derivative stencils.
 
-Port of ``tpuflow3d.derivatives`` (2-point stencils): central differences
-of the averaged volume Ibar = (I0 + I1w)/2 give the spatial gradient
-(Iz, Iy, Ix), and It = I1w - I0; ``grad_constancy_terms`` linearizes the
-gradient-constancy assumption. Neumann boundaries via replicate padding;
+Port of ``tpuflow3d.derivatives``: central differences (order 2: the
+3-point stencil; order 4: the 5-point one) of the averaged volume
+Ibar = (I0 + I1w)/2 give the spatial gradient (Iz, Iy, Ix), and
+It = I1w - I0; ``grad_constancy_terms`` linearizes the gradient-constancy
+assumption. Neumann boundaries via replicate padding;
 Z margins through HaloCtx.zpad.
 """
 
@@ -27,6 +28,25 @@ def central_diff(x: torch.Tensor, axis: int,
                   - neighbor_slices(xp, 1, axis, -1))
 
 
+def central_diff4(x: torch.Tensor, axis: int,
+                  ctx: HaloCtx = HaloCtx()) -> torch.Tensor:
+    """4th-order 5-point stencil (-x[p+2] + 8x[p+1] - 8x[p-1] + x[p-2])/12
+    with replicate edges (``FlowParams.deriv_order=4``)."""
+    if axis in (Z_AXIS, x.ndim + Z_AXIS):
+        xp = ctx.zpad(x, 2)
+        axis = Z_AXIS
+    else:
+        xp = replicate_pad(x, 2, axis=axis)
+    nb = {d: neighbor_slices(xp, 2, axis, d) for d in (-2, -1, 1, 2)}
+    return (-nb[2] + 8.0 * nb[1] - 8.0 * nb[-1] + nb[-2]) * (1.0 / 12.0)
+
+
+def _diff(order: int):
+    if order not in (2, 4):
+        raise ValueError("deriv_order must be 2 or 4")
+    return central_diff if order == 2 else central_diff4
+
+
 def grad_constancy_terms(i0: torch.Tensor, i1w: torch.Tensor,
                          ctx: HaloCtx = HaloCtx(), order: int = 2,
                          g: torch.Tensor | None = None
@@ -42,18 +62,16 @@ def grad_constancy_terms(i0: torch.Tensor, i1w: torch.Tensor,
     W)). Pass ``g``, the gradient ``derivatives`` (or the fused kernel)
     already produced from the same (i0, i1w), to reuse it as the inner
     first derivative."""
-    if order != 2:
-        raise NotImplementedError(
-            "deriv_order=4 is not ported yet (ROADMAP queue 1, item 4)")
+    diff = _diff(order)
     axes = (Z_AXIS, -2, -1)
     if g is None:
         ibar = 0.5 * (i0 + i1w)
-        g = torch.stack([central_diff(ibar, a, ctx) for a in axes])
+        g = torch.stack([diff(ibar, a, ctx) for a in axes])
     gc_g = []
     gc_it = []
     for i, a in enumerate(axes):
-        gc_g.append(torch.stack([central_diff(g[i], b, ctx) for b in axes]))
-        gc_it.append(central_diff(i1w, a, ctx) - central_diff(i0, a, ctx))
+        gc_g.append(torch.stack([diff(g[i], b, ctx) for b in axes]))
+        gc_it.append(diff(i1w, a, ctx) - diff(i0, a, ctx))
     return torch.stack(gc_g), torch.stack(gc_it)
 
 
@@ -61,11 +79,10 @@ def derivatives(i0: torch.Tensor, i1w: torch.Tensor,
                 ctx: HaloCtx = HaloCtx(),
                 order: int = 2) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (g, it): g = (3, D, H, W) spatial gradient (Iz, Iy, Ix) of
-    the averaged volume, it = I1w - I0."""
-    if order != 2:
-        raise NotImplementedError(
-            "deriv_order=4 is not ported yet (ROADMAP queue 1, item 4)")
+    the averaged volume, it = I1w - I0. order: 2 (3-point central) or 4
+    (5-point)."""
+    diff = _diff(order)
     ibar = 0.5 * (i0 + i1w)
-    g = torch.stack([central_diff(ibar, a, ctx) for a in (Z_AXIS, -2, -1)])
+    g = torch.stack([diff(ibar, a, ctx) for a in (Z_AXIS, -2, -1)])
     it = i1w - i0
     return g, it

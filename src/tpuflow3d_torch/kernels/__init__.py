@@ -2,10 +2,26 @@
 
 The sources are ``tpuflow3d_torch/csrc/*.cu``, each with a plain C entry
 point that launches its kernel on a given stream and returns
-``cudaGetLastError()``. ``load_library`` compiles them with nvcc for
+``cudaGetLastError()``:
+
+- ``sor.cu`` K1, the flat rank-1 SOR half-sweep (``kernels/sor.py``);
+- ``sor_packed.cu`` K4, the same on colour-packed arrays
+  (``kernels/sor_packed.py``, with the layout ``pack_color`` /
+  ``unpack_colors``);
+- ``sor_gc.cu`` K6, the flat general-SPD half-sweep: gamma > 0 and every
+  multigrid level (``kernels/sor_gc.py``);
+- ``sor_gc_packed.cu`` K7, K6 on colour-packed arrays
+  (``kernels/sor_gc_packed.py``);
+- ``warp_grad.cu`` K2 (trilinear) and K5 (tricubic), the fused warp +
+  derivatives (``kernels/warp_grad.py``);
+- ``median3.cu`` K3, the 3x3x3 median (``kernels/median3.py``).
+
+The four sweep kernels read ``c`` (and ``g``) stored in float32 or in
+bfloat16 (``csrc/terms.cuh``). ``load_library`` compiles them with nvcc for
 ``sm_90a``, one nvcc per source, all started together, links the objects
 into ``build/tpuflow3d_torch/lib<hash>.so`` at the root of the checkout
-(the hash covers the sources and the flags, so an edited source rebuilds)
+(the hash covers the sources, their headers and the flags, so an edited
+source rebuilds)
 and loads it with ctypes. A missing nvcc or a failed build raises, with
 nvcc's output; nothing falls back to the plain versions.
 
@@ -40,18 +56,29 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"sor_halfsweep": 0, "warp_grad": 0, "median3": 0,
-            "warp_grad_tricubic": 0, "sor_gc": 0}
+            "warp_grad_tricubic": 0, "sor_gc": 0, "sor_packed": 0,
+            "sor_gc_packed": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # du, c, g, psi_s, psi_d, du_lo, du_hi, ps_lo, ps_hi, out, D, H, W, z0,
-    # dg, half_alpha, omega, one_minus_omega, color, stream
-    "tf3d_sor_halfsweep": [_P] * 10 + [_I] * 5 + [_F] * 3 + [_I, _P],
+    # dg, half_alpha, omega, one_minus_omega, color, terms_bf16, stream
+    "tf3d_sor_halfsweep": [_P] * 10 + [_I] * 5 + [_F] * 3 + [_I, _I, _P],
     # i1, flow, i0, g, it, i1w (may be null), D, H, W, cubic, stream
     "tf3d_warp_grad": [_P] * 6 + [_I] * 4 + [_P],
     # du, c, ainv, psi_s, du_lo, du_hi, ps_lo, ps_hi, out, D, H, W, z0, dg,
-    # hz, hy, hx, omega, one_minus_omega, color, stream
-    "tf3d_sor_halfsweep_gc": [_P] * 9 + [_I] * 5 + [_F] * 5 + [_I, _P],
+    # hz, hy, hx, omega, one_minus_omega, color, terms_bf16, stream
+    "tf3d_sor_halfsweep_gc": [_P] * 9 + [_I] * 5 + [_F] * 5 + [_I, _I, _P],
+    # du_a, du_o, c_a, g_a, ps_a, ps_o, pd_a, duo_lo, duo_hi, pso_lo, pso_hi,
+    # out, D, H, WP, z0, dg, half_alpha, omega, one_minus_omega, color,
+    # terms_bf16, stream
+    "tf3d_sor_halfsweep_packed": ([_P] * 12 + [_I] * 5 + [_F] * 3
+                                  + [_I, _I, _P]),
+    # du_a, du_o, c_a, ainv_a, ps_a, ps_o, duo_lo, duo_hi, pso_lo, pso_hi,
+    # out, D, H, WP, z0, dg, half_alpha, omega, one_minus_omega, color,
+    # terms_bf16, stream
+    "tf3d_sor_halfsweep_gc_packed": ([_P] * 11 + [_I] * 5 + [_F] * 3
+                                     + [_I, _I, _P]),
     # x, lo, hi, out, C, D, H, W, stream
     "tf3d_median3": [_P] * 4 + [_I] * 4 + [_P],
 }
@@ -81,7 +108,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{h.hexdigest()[:16]}.so"
@@ -134,13 +161,15 @@ def load_library() -> ctypes.CDLL:
 
 
 def check_tensor(name: str, t: torch.Tensor, shape: tuple,
-                 device: torch.device) -> None:
-    """Raise unless ``t`` is a contiguous float32 tensor of ``shape`` on
-    ``device`` (what every kernel takes)."""
+                 device: torch.device,
+                 dtype: torch.dtype = torch.float32) -> None:
+    """Raise unless ``t`` is a contiguous tensor of ``dtype`` and ``shape``
+    on ``device`` (what every kernel takes; only the stored sweep constants
+    may be other than float32)."""
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected torch.float32")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
@@ -159,3 +188,12 @@ def launch(name: str, fn, *args) -> None:
 
 def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def terms_dtype(c: torch.Tensor) -> torch.dtype:
+    """The storage type of the sweep constants, from ``c``: float32 or
+    bfloat16 (what the sweep kernels are instantiated for), else raise."""
+    if c.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"c: dtype {c.dtype}, expected torch.float32 or "
+                        f"torch.bfloat16")
+    return c.dtype

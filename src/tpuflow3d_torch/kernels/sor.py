@@ -1,10 +1,12 @@
 """K1 wrapper: red-black SOR half-sweep (``csrc/sor.cu``).
 
 Replaces ``tpuflow3d/pallas/sor.py:sor_halfsweep_pallas``. The kernel reads
-the compact terms (c, g, psi_s, psi_d) and recomputes the neighbour weights
-and the Sherman-Morrison factors per voxel, so the precomputed
+the compact terms (c, g, psi_s, psi_d; c and g stored in float32 or
+bfloat16) and recomputes the neighbour weights and the Sherman-Morrison
+factors per voxel from the stored g, so the precomputed
 ``SolveTerms.w/sw_inv/smt`` are read only by the plain version,
-``solver.sor_halfsweep``, which this wrapper runs for CPU tensors.
+``solver.sor_halfsweep``, which this wrapper runs for CPU tensors (it too
+remakes ``smt`` where g is stored in bfloat16).
 
 Out-of-place, as the plain version: returns a new tensor (the voxels of
 the other colour are copied), so a caller may keep the previous iterate.
@@ -34,8 +36,10 @@ def sor_halfsweep(du: torch.Tensor, t: SolveTerms, alpha: float, omega: float,
     vol3, vol1 = (3, d, h, w), (d, h, w)
     du_lo, du_hi = ctx.z_halo_planes(du)
     ps_lo, ps_hi = ctx.z_halo_planes(t.psi_s)
-    for name, x, shape in (("du", du, vol3), ("c", t.c, vol3),
-                           ("g", t.g, vol3), ("psi_s", t.psi_s, vol1),
+    td = kernels.terms_dtype(t.c)
+    kernels.check_tensor("c", t.c, vol3, dev, td)
+    kernels.check_tensor("g", t.g, vol3, dev, td)
+    for name, x, shape in (("du", du, vol3), ("psi_s", t.psi_s, vol1),
                            ("psi_d", t.psi_d, vol1),
                            ("du_lo", du_lo, (3, 1, h, w)),
                            ("du_hi", du_hi, (3, 1, h, w)),
@@ -53,5 +57,5 @@ def sor_halfsweep(du: torch.Tensor, t: SolveTerms, alpha: float, omega: float,
             du_hi.data_ptr(), ps_lo.data_ptr(), ps_hi.data_ptr(),
             out.data_ptr(), d, h, w, int(ctx.z0(d)), ctx.d_global(d),
             half_alpha, omega, 1.0 - omega, int(color),
-            kernels.stream_handle(dev))
+            int(td == torch.bfloat16), kernels.stream_handle(dev))
     return out

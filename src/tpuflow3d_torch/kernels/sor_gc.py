@@ -2,8 +2,9 @@
 (``csrc/sor_gc.cu``).
 
 Replaces ``tpuflow3d/pallas/sor_gc.py:sor_halfsweep_gc_pallas``. The kernel
-reads (c, ainv, psi_s) and recomputes the neighbour weights from psi_s with
-one alpha per axis (z, y, x): (alpha, alpha, alpha) for the fine
+reads (c, ainv, psi_s; c stored in float32 or bfloat16) and recomputes the
+neighbour weights from psi_s with one alpha per axis (z, y, x): (alpha,
+alpha, alpha) for the fine
 gamma > 0 sweep, alpha/h^2 per axis on a multigrid level. The plain
 version, run for CPU tensors, is ``solver.sor_halfsweep`` on the same
 SolveTerms, which reads the precomputed weights ``t.w`` (made with the
@@ -40,7 +41,9 @@ def sor_halfsweep_gc(du: torch.Tensor, t: SolveTerms, axis_alpha: tuple,
     vol3, vol1 = (3, d, h, w), (d, h, w)
     du_lo, du_hi = ctx.z_halo_planes(du)
     ps_lo, ps_hi = ctx.z_halo_planes(t.psi_s)
-    for name, x, shape in (("du", du, vol3), ("c", t.c, vol3),
+    td = kernels.terms_dtype(t.c)
+    kernels.check_tensor("c", t.c, vol3, dev, td)
+    for name, x, shape in (("du", du, vol3),
                            ("ainv", t.ainv, (6, d, h, w)),
                            ("psi_s", t.psi_s, vol1),
                            ("du_lo", du_lo, (3, 1, h, w)),
@@ -59,5 +62,6 @@ def sor_halfsweep_gc(du: torch.Tensor, t: SolveTerms, axis_alpha: tuple,
             t.psi_s.data_ptr(), du_lo.data_ptr(), du_hi.data_ptr(),
             ps_lo.data_ptr(), ps_hi.data_ptr(), out.data_ptr(), d, h, w,
             int(ctx.z0(d)), ctx.d_global(d), hz, hy, hx, omega, 1.0 - omega,
-            int(color), kernels.stream_handle(dev))
+            int(color), int(td == torch.bfloat16),
+            kernels.stream_handle(dev))
     return out

@@ -112,7 +112,7 @@ def data_block_d6(t: SolveTerms) -> torch.Tensor:
     rank-1 psi_d g g^T."""
     if t.d6 is not None:
         return t.d6
-    g, pd = t.g, t.psi_d
+    g, pd = t.g.to(t.psi_s.dtype), t.psi_d  # g may be stored in bfloat16
     return torch.stack([pd * g[0] * g[0], pd * g[0] * g[1],
                         pd * g[0] * g[2], pd * g[1] * g[1],
                         pd * g[1] * g[2], pd * g[2] * g[2]])
@@ -179,7 +179,7 @@ def mg_residual(du, lvl: MGLevel, rhs, ctx: HaloCtx):
     linearized system at any level. The reference recomputes w from psi_s
     here (so XLA can drop the stored weights); the stored ``terms.w`` are
     the same numbers."""
-    r = rhs
+    r = rhs.to(du.dtype)  # the fine right-hand side may be stored bfloat16
     for wd, dnb in zip(lvl.terms.w, _neighbors6(du, ctx)):
         r = r + wd[None] * dnb
     a = lvl.d6

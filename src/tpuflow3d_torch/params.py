@@ -7,8 +7,10 @@ presets. Two deliberate differences:
   CUDA kernels for CUDA tensors and runs the plain PyTorch versions for CPU
   tensors, ``kernels`` requires CUDA tensors, ``plain`` runs the plain
   versions on any device (see ``backend.py``).
-- ``sweep_layout`` defaults to ``"flat"``: the colour-packed layout is a
-  TPU vector-lane trick whose CUDA kernel is not ported yet.
+- ``sweep_layout`` defaults to ``"flat"`` (the reference's default is
+  ``"packed"``). Both are served: ``"packed"`` sweeps SOR through the
+  colour-packed kernels K4 and K7 at even W. Which is the faster default
+  on the card is an open question recorded in PERF.md.
 
 ``from_reference`` carries a ``tpuflow3d.FlowParams`` (or its
 ``dataclasses.asdict``) across without importing the JAX package.
@@ -155,7 +157,9 @@ def from_reference(obj_or_dict) -> FlowParams:
     """Map a ``tpuflow3d.FlowParams`` (or ``dataclasses.asdict`` of one)
     onto the port's FlowParams: backend ``xla`` -> ``plain``, ``pallas`` ->
     ``kernels``, ``auto`` -> ``auto``; every other field carries over as
-    it is (so a reference ``sweep_layout="packed"`` stays packed)."""
+    it is (so a reference ``sweep_layout="packed"`` stays packed, and
+    ``terms_dtype="bfloat16"`` and ``deriv_order=4`` carry over). Every
+    preset of the reference maps onto a configuration this port serves."""
     if dataclasses.is_dataclass(obj_or_dict):
         fields = dataclasses.asdict(obj_or_dict)
     else:

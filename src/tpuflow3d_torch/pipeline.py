@@ -4,10 +4,15 @@ Port of ``tpuflow3d.pipeline`` for one device: normalize -> presmooth ->
 build pyramids -> per level (coarse to fine) ``warps`` times: warp +
 derivatives -> inner solve -> median -> accumulate -> clamp; upsample
 between levels. PyTorch runs eagerly, so the reference's ``fori_loop``s
-are Python loops. On CUDA tensors (backend "auto" or "kernels") the warp +
-derivatives (K2 trilinear, K5 tricubic), the SOR half-sweep (K1, or K6 for
-gamma > 0 and on every multigrid level) and the median (K3) run
-hand-written kernels.
+are Python loops. On CUDA tensors (backend "auto" or "kernels") these
+run hand-written kernels:
+
+- warp + derivatives: K2 (trilinear) or K5 (tricubic) with
+  ``deriv_order=2``; order 4 warps and differentiates in plain PyTorch
+  (see ``warp_iteration``);
+- the SOR half-sweep: K1 (flat) or K4 (``sweep_layout="packed"``, even W);
+  with gamma > 0 K6 (flat) or K7 (packed); every multigrid level K6;
+- the median: K3.
 """
 
 from __future__ import annotations
@@ -39,9 +44,15 @@ def warp_iteration(i0l, i1l, flow, p: FlowParams, ctx: HaloCtx, parity,
     """ONE warp iteration: warp -> derivatives (+ gradient-constancy terms
     when gamma > 0) -> inner solve -> median -> accumulate -> clamp.
     Returns the flow; per-sweep residuals go into ``slot`` in place when
-    it is given."""
+    it is given.
+
+    The fused kernels K2 and K5 compute 2-point derivatives, as the TPU
+    kernel they replace, so they run only for ``deriv_order == 2``. Order
+    4 warps and differentiates in plain PyTorch on any device: that is the
+    reference's route (it has no kernel for the 5-point stencil), and the
+    sweeps and the median still run their kernels."""
     gamma = p.gamma > 0.0
-    if use_kernels(p, i0l):
+    if use_kernels(p, i0l) and p.deriv_order == 2:
         from tpuflow3d_torch.kernels.warp_grad import warp_grad
         out = warp_grad(i1l, flow, i0l, ctx, interp=p.interp,
                         emit_warped=gamma)
@@ -126,8 +137,10 @@ def compute_flow(i0, i1, params: FlowParams = FlowParams(), device=None,
     """Compute dense 3D optical flow s with I1(x + s(x)) ~= I0(x).
 
     i0, i1: (D, H, W) volumes, numpy arrays or tensors (any float/int
-    dtype). Numpy input is placed on ``device``, which is then required;
-    tensor input runs on its own device (``device``, if given, must be
+    dtype). Numpy input is placed on ``device``: the GPU (``"cuda"``)
+    unless the caller names another, and where there is no GPU that
+    raises instead of running on the CPU (pass ``device="cpu"`` for that).
+    Tensor input runs on its own device (``device``, if given, must be
     the same). Returns a (3, D, H, W) tensor on that device (displacements
     along z, y, x in voxels), plus a diagnostics dict when requested
     (per-sweep residual curves if params.track_residuals).
@@ -142,7 +155,12 @@ def compute_flow(i0, i1, params: FlowParams = FlowParams(), device=None,
                              f"{i0.device}")
     elif isinstance(i0, np.ndarray) and isinstance(i1, np.ndarray):
         if device is None:
-            raise ValueError("numpy volumes need device=... (no default)")
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "compute_flow runs numpy volumes on the GPU by default, "
+                    "and torch.cuda.is_available() is false; pass "
+                    "device=\"cpu\" to run on the CPU")
+            device = "cuda"
         i0 = torch.as_tensor(i0, device=device)
         i1 = torch.as_tensor(i1, device=device)
     else:

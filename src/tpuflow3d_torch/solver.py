@@ -14,9 +14,20 @@ a general SPD 3x3, whose symmetric inverse is precomputed per nonlinearity
 update (``SolveTerms.ainv``).
 
 Red/black colouring uses the *global* parity of (z+y+x). On CUDA tensors
-the SOR half-sweep runs a hand-written kernel: K1 (``kernels/sor.py``) for
-the rank-1 system, K6 (``kernels/sor_gc.py``) for the general one;
-``sor_halfsweep`` here is the plain version of both.
+the SOR half-sweep runs a hand-written kernel. With
+``sweep_layout="flat"``, and on any level of odd W: K1
+(``kernels/sor.py``) for the rank-1 system, K6 (``kernels/sor_gc.py``) for
+the general one; ``sor_halfsweep`` here is the plain version of both. With
+``sweep_layout="packed"`` at even W: K4 (``kernels/sor_packed.py``) and K7
+(``kernels/sor_gc_packed.py``) on colour-packed arrays, each with its
+plain version beside its wrapper. ``backend="plain"`` always sweeps flat
+and plain, and multigrid always smooths flat (K6).
+
+``terms_dtype="bfloat16"`` stores ``c`` and ``g`` in bfloat16 (storage
+only: every consumer widens them and computes in float32). ``SolveTerms``
+is then the reference's, ``smt`` of the unrounded g included; the rank-1
+sweeps, kernel and plain, solve with the stored g as the reference's Pallas
+kernels do, which its XLA sweep does not (``_du_star``).
 """
 
 from __future__ import annotations
@@ -132,10 +143,6 @@ def compute_terms(g: torch.Tensor, it: torch.Tensor, flow: torch.Tensor,
     if (p.gamma > 0.0) != (gc is not None):
         raise ValueError("gamma > 0 requires grad_constancy_terms (and "
                          "vice versa)")
-    if p.terms_dtype != str(g.dtype).removeprefix("torch."):
-        raise NotImplementedError(
-            "terms_dtype other than the solver dtype is not ported yet "
-            "(ROADMAP queue 1, item 5)")
     dtype = g.dtype
     shape = tuple(it.shape)
 
@@ -197,13 +204,17 @@ def compute_terms(g: torch.Tensor, it: torch.Tensor, flow: torch.Tensor,
                           d_entry(1, 1), d_entry(1, 2), d_entry(2, 2)])
         ainv = _sym3_inverse(d6[0] + sw, d6[1], d6[2],
                              d6[3] + sw, d6[4], d6[5] + sw)
-    return SolveTerms(c=c, g=g, w=tuple(w_dirs), sw_inv=sw_inv, smt=smt,
-                      psi_s=psi_s, psi_d=psi_d, ainv=ainv, d6=d6)
+    # Storage-only downcast of the sweep constants c and g, at the end as
+    # in the reference: smt, ainv and d6 are those of the unrounded g.
+    store = getattr(torch, p.terms_dtype)
+    return SolveTerms(c=c.to(store), g=g.to(store), w=tuple(w_dirs),
+                      sw_inv=sw_inv, smt=smt, psi_s=psi_s, psi_d=psi_d,
+                      ainv=ainv, d6=d6)
 
 
 def _du_star(du: torch.Tensor, t: SolveTerms, ctx: HaloCtx) -> torch.Tensor:
     """Exact pointwise solution A^-1 b given current neighbour values of du."""
-    b = t.c
+    b = t.c.to(du.dtype)  # the terms may be stored in bfloat16
     for wd, dnb in zip(t.w, _neighbors6(du, ctx)):
         b = b + wd[None] * dnb
     if t.ainv is not None:
@@ -215,8 +226,20 @@ def _du_star(du: torch.Tensor, t: SolveTerms, ctx: HaloCtx) -> torch.Tensor:
             a[1] * b[0] + a[3] * b[1] + a[4] * b[2],
             a[2] * b[0] + a[4] * b[1] + a[5] * b[2],
         ])
-    gb = (t.g * b).sum(0)
-    return b * t.sw_inv[None] - t.g * (gb * t.smt)[None]
+    g = t.g.to(du.dtype)
+    smt = t.smt
+    if t.g.dtype != du.dtype:
+        # g is stored rounded: sw*I + psi_d g g^T has the Sherman-Morrison
+        # inverse only with smt made from the g the sweep multiplies with,
+        # so it is remade from the stored g, as the kernels (and the
+        # reference's Pallas kernels) do. The reference's XLA sweep keeps
+        # t.smt, that of the unrounded g.
+        sw = torch.zeros_like(t.sw_inv)
+        for wd in t.w:
+            sw = sw + wd
+        smt = t.psi_d * t.sw_inv / (sw + t.psi_d * (g * g).sum(0))
+    gb = (g * b).sum(0)
+    return b * t.sw_inv[None] - g * (gb * smt)[None]
 
 
 def sor_halfsweep(du: torch.Tensor, t: SolveTerms, omega: float,
@@ -235,6 +258,46 @@ def jacobi_sweep(du: torch.Tensor, t: SolveTerms, omega: float,
     return (1.0 - omega) * du + omega * star
 
 
+def _packed_sweeper(du: torch.Tensor, t: SolveTerms, p: FlowParams,
+                    ctx: HaloCtx):
+    """The colour-packed form of one inner iteration's sweeps: packs du and
+    the sweep constants ((c, ainv, psi_s) with gamma > 0, else (c, g,
+    psi_s, psi_d)) once, an exact permutation amortized over p.sweeps
+    sweeps, and fetches the psi_s halos once. Returns the packed (red,
+    black) pair of du and the function that runs one red+black sweep on
+    such a pair through K4 or K7 (their plain versions for CPU tensors)."""
+    from tpuflow3d_torch.kernels.sor_packed import pack_color
+    d = du.shape[-3]
+    z0, dg = int(ctx.z0(d)), ctx.d_global(d)
+    if p.gamma > 0.0:
+        from tpuflow3d_torch.kernels.sor_gc_packed import (
+            sor_halfsweep_gc_packed as halfsweep)
+        fields = (t.c, t.ainv)
+    else:
+        from tpuflow3d_torch.kernels.sor_packed import (
+            sor_halfsweep_packed as halfsweep)
+        fields = (t.c, t.g)
+    # Per colour: the fields before psi_s, psi_s, the fields after it.
+    head = [[pack_color(a, col, z0) for a in fields] for col in (0, 1)]
+    ps = [pack_color(t.psi_s, col, z0) for col in (0, 1)]
+    tail = [[] if p.gamma > 0.0 else [pack_color(t.psi_d, col, z0)]
+            for col in (0, 1)]
+    ps_halos = [ctx.z_halo_planes(x) for x in ps]
+
+    def one_sweep(pair):
+        pair = list(pair)
+        for col in (0, 1):
+            other = 1 - col
+            lo, hi = ctx.z_halo_planes(pair[other])
+            pair[col] = halfsweep(
+                pair[col], pair[other], *head[col], ps[col], ps[other],
+                *tail[col], lo, hi, *ps_halos[other], z0, p.alpha, p.omega,
+                col, dg)
+        return tuple(pair)
+
+    return (pack_color(du, 0, z0), pack_color(du, 1, z0)), one_sweep
+
+
 def solve_increment(g: torch.Tensor, it: torch.Tensor, flow: torch.Tensor,
                     p: FlowParams, ctx: HaloCtx, parity: torch.Tensor,
                     residuals_slot: torch.Tensor | None = None, gc=None):
@@ -243,7 +306,13 @@ def solve_increment(g: torch.Tensor, it: torch.Tensor, flow: torch.Tensor,
     (inner*sweeps,) tensor) is given, writes the per-sweep (per-cycle for
     multigrid) mean update norm into it in place. ``gc``: the
     gradient-constancy terms, required exactly when p.gamma > 0; SOR then
-    sweeps the general SPD system (K6 on CUDA).
+    sweeps the general SPD system (K6, or K7 packed, on CUDA).
+
+    SOR sweeps colour-packed when ``p.sweep_layout == "packed"``, W is
+    even and the backend is not "plain", on any device: the wrappers run
+    K4/K7 for CUDA tensors and their plain versions for CPU tensors. A
+    level of odd W sweeps flat, as in the reference; the reference's
+    W >= 256 gate is about the TPU's 128-lane tile and is not copied.
 
     With ``residual_tol`` > 0 the sweeps (cycles) of each inner iteration
     stop once the mean update norm falls below it; the test costs one host
@@ -252,13 +321,15 @@ def solve_increment(g: torch.Tensor, it: torch.Tensor, flow: torch.Tensor,
     track = residuals_slot is not None
     n_global = 3.0 * ctx.d_global(it.shape[-3]) * it.shape[-2] * it.shape[-1]
     kernel_sweeps = p.solver == "sor" and use_kernels(p, g)
-    if kernel_sweeps:
+    packed = (p.solver == "sor" and p.sweep_layout == "packed"
+              and p.backend != "plain" and it.shape[-1] % 2 == 0)
+    if kernel_sweeps and not packed:
         if p.gamma > 0.0:
             from tpuflow3d_torch.kernels.sor_gc import sor_halfsweep_gc
         else:
             from tpuflow3d_torch.kernels.sor import sor_halfsweep as sor_kernel
 
-    def one_sweep(du, t):
+    def flat_sweep(du, t):
         if kernel_sweeps:
             for color in (0, 1):
                 if p.gamma > 0.0:
@@ -272,8 +343,13 @@ def solve_increment(g: torch.Tensor, it: torch.Tensor, flow: torch.Tensor,
             return sor_halfsweep(du, t, p.omega, parity, 1, ctx)
         return jacobi_sweep(du, t, p.jacobi_omega(), ctx)
 
-    def mean_update(du1, du):
-        return ctx.psum((du1 - du).abs().sum()) / n_global
+    def mean_update(new, old):
+        """Mean |update| of a sweep; over the colour pair when packed."""
+        if packed:
+            total = sum((a - b).abs().sum() for a, b in zip(new, old))
+        else:
+            total = (new - old).abs().sum()
+        return ctx.psum(total) / n_global
 
     for k in range(p.inner_iterations):
         t = compute_terms(g, it, flow, du, p, ctx, gc=gc)
@@ -281,13 +357,22 @@ def solve_increment(g: torch.Tensor, it: torch.Tensor, flow: torch.Tensor,
             from tpuflow3d_torch.mgsolver import mg_solve
             du = mg_solve(du, t, p, ctx, residuals_slot, k * p.sweeps)
             continue
+        if packed:
+            state, one_sweep = _packed_sweeper(du, t, p, ctx)
+        else:
+            state, one_sweep = du, lambda x: flat_sweep(x, t)
         for s in range(p.sweeps):
-            du1 = one_sweep(du, t)
+            new = one_sweep(state)
             if track or p.residual_tol > 0.0:
-                r = mean_update(du1, du)
+                r = mean_update(new, state)
                 if track:
                     residuals_slot[k * p.sweeps + s] = r
-            du = du1
+            state = new
             if p.residual_tol > 0.0 and not bool(r > p.residual_tol):
                 break
+        if packed:
+            from tpuflow3d_torch.kernels.sor_packed import unpack_colors
+            du = unpack_colors(*state, int(ctx.z0(du.shape[-3])))
+        else:
+            du = state
     return du

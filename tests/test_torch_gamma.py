@@ -101,9 +101,21 @@ def test_grad_constancy_terms_match_reference(shape, reuse_g):
 
 
 def test_grad_constancy_order4_raises():
-    x = torch.zeros((4, 4, 4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pder.grad_constancy_terms(x, x, order=4)
+    """Order 4 is served (the 5-point stencil, held to the reference in
+    tests/test_torch_ops.py): it no longer raises and differs from order
+    2; an order that is neither 2 nor 4 raises."""
+    i0, i1w, _, _ = _pair((8, 9, 10))
+    ti0, ti1w = torch.from_numpy(i0), torch.from_numpy(i1w)
+    g4, it4 = pder.grad_constancy_terms(ti0, ti1w, order=4)
+    g2, _ = pder.grad_constancy_terms(ti0, ti1w, order=2)
+    assert g4.shape == g2.shape == (3, 3, 8, 9, 10)
+    assert bool(torch.isfinite(g4).all()) and not torch.equal(g4, g2)
+    want = rder.grad_constancy_terms(jnp.asarray(i0), jnp.asarray(i1w),
+                                     order=4)
+    np.testing.assert_allclose(_np(g4), _np(want[0]), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(_np(it4), _np(want[1]), atol=1e-5, rtol=0)
+    with pytest.raises(ValueError, match="deriv_order"):
+        pder.grad_constancy_terms(ti0, ti1w, order=3)
 
 
 @pytest.mark.parametrize("shape", SHAPES)

@@ -1,7 +1,9 @@
 """The CUDA kernels (K1 SOR half-sweep, K2/K5 fused trilinear/tricubic
-warp + derivatives, K3 median, K6 general-SPD SOR half-sweep) against
-their plain PyTorch versions, on the card, and compute_flow through the
-kernels against plain on the ladder, ``accurate`` and gamma paths.
+warp + derivatives, K3 median, K6 general-SPD SOR half-sweep, K4 and K7
+their colour-packed forms, and the bfloat16-terms instantiations of the
+four sweep kernels) against their plain PyTorch versions, on the card, and
+compute_flow through the kernels against plain on the ladder, ``accurate``,
+gamma, packed, bfloat16 and order-4 paths.
 
 Marked ``cuda``: every test skips when torch.cuda.is_available() is false.
 The machine with the card has no JAX, and tests/conftest.py imports it,
@@ -22,6 +24,8 @@ from tpuflow3d_torch.grid import HaloCtx
 from tpuflow3d_torch.kernels.median3 import median3 as k_median3
 from tpuflow3d_torch.kernels.sor import sor_halfsweep as k_sor
 from tpuflow3d_torch.kernels.sor_gc import sor_halfsweep_gc as k_sor_gc
+from tpuflow3d_torch.kernels import sor_gc_packed as k7
+from tpuflow3d_torch.kernels import sor_packed as k4
 from tpuflow3d_torch.kernels.warp_grad import warp_grad as k_warp_grad
 from tpuflow3d_torch.median import median3
 from tpuflow3d_torch.mgsolver import build_mg_levels
@@ -45,7 +49,7 @@ def _t(a, dev):
     return torch.as_tensor(np.asarray(a, np.float32), device=dev)
 
 
-def _terms(shape, dev, seed=0, gamma=0.0):
+def _terms(shape, dev, seed=0, gamma=0.0, terms_dtype="float32"):
     rng = np.random.default_rng(seed)
     i0 = _t(rng.normal(size=shape), dev)
     shift = torch.zeros((3, *shape), device=dev)
@@ -56,7 +60,8 @@ def _terms(shape, dev, seed=0, gamma=0.0):
     flow = _t(rng.normal(size=(3, *shape)) * 0.1, dev)
     du = _t(rng.normal(size=(3, *shape)) * 0.05, dev)
     return du, compute_terms(g, it, flow, du,
-                             FlowParams(alpha=ALPHA, gamma=gamma), gc=gc)
+                             FlowParams(alpha=ALPHA, gamma=gamma,
+                                        terms_dtype=terms_dtype), gc=gc)
 
 
 @pytest.mark.parametrize("color", [0, 1])
@@ -111,6 +116,96 @@ def test_sor_gc_every_multigrid_level_matches_plain(dev):
             got = k_sor_gc(x, lt, lvl.axis_alpha, 1.3, color)
             torch.cuda.synchronize()
             torch.testing.assert_close(got, ref, atol=5e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("gamma", [0.0, 1.5], ids=["k1", "k6"])
+@pytest.mark.parametrize("color", [0, 1])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_flat_sweeps_bf16_terms_match_plain(dev, shape, color, gamma):
+    """The bfloat16 instantiations of K1 (c, g) and K6 (c) against the
+    plain sweep on the same bfloat16 terms."""
+    du, t = _terms(shape, dev, gamma=gamma, terms_dtype="bfloat16")
+    assert t.c.dtype == t.g.dtype == torch.bfloat16
+    parity = parity_mask(shape, HaloCtx(), dev)
+    ref = sor_halfsweep(du, t, OMEGA, parity, color)
+    got = (k_sor_gc(du, t, (ALPHA,) * 3, OMEGA, color) if gamma > 0.0
+           else k_sor(du, t, ALPHA, OMEGA, color))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, atol=5e-5, rtol=1e-5)
+
+
+# Packed shapes: even W, with odd D and H, a one-element row (W = 2) and
+# sizes that end inside a thread block.
+PACKED_SHAPES = [(12, 10, 14), (7, 9, 12), (13, 64, 64), (16, 33, 70),
+                 (5, 3, 2)]
+
+
+def _packed_args(du, t, color, lo_z, hi_z, gamma):
+    """Arguments of a packed half-sweep of ``color`` on the slab
+    [lo_z, hi_z) of the volume: the slab's packed arrays with the slab's
+    z0, and the other colour's halo planes taken from the neighbouring
+    planes of the full packed arrays (edge replicas at the volume's ends,
+    as HaloCtx.z_halo_planes gives them)."""
+    d = du.shape[1]
+    full = lambda a, c: k4.pack_color(a, c, 0)
+    slab = lambda a, c: k4.pack_color(a[..., lo_z:hi_z, :, :].contiguous(),
+                                      c, lo_z)
+    other = 1 - color
+    duo, pso = full(du, other), full(t.psi_s, other)
+    zl, zh = max(lo_z - 1, 0), min(hi_z, d - 1)
+    halos = (duo[:, zl:zl + 1].contiguous(), duo[:, zh:zh + 1].contiguous(),
+             pso[zl:zl + 1].contiguous(), pso[zh:zh + 1].contiguous())
+    mid = ((slab(t.c, color), slab(t.ainv, color)) if gamma > 0.0
+           else (slab(t.c, color), slab(t.g, color)))
+    tail = () if gamma > 0.0 else (slab(t.psi_d, color),)
+    return (slab(du, color), slab(du, other), *mid, slab(t.psi_s, color),
+            slab(t.psi_s, other), *tail, *halos, lo_z, ALPHA, OMEGA, color, d)
+
+
+@pytest.mark.parametrize("terms_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("gamma", [0.0, 1.5], ids=["k4", "k7"])
+@pytest.mark.parametrize("color", [0, 1])
+@pytest.mark.parametrize("shape", PACKED_SHAPES)
+def test_packed_halfsweep_matches_plain(dev, shape, color, gamma,
+                                        terms_dtype):
+    """K4 and K7, float32 and bfloat16 terms, on the whole volume and on
+    an inner slab (z0 != 0, real halo planes, global depth): against
+    their plain packed versions, and the whole-volume result against the
+    flat plain sweep."""
+    du, t = _terms(shape, dev, gamma=gamma, terms_dtype=terms_dtype)
+    kern, plain = ((k7.sor_halfsweep_gc_packed,
+                    k7.sor_halfsweep_gc_packed_plain) if gamma > 0.0 else
+                   (k4.sor_halfsweep_packed, k4.sor_halfsweep_packed_plain))
+    d = shape[0]
+    kernels.reset_launches()
+    for lo_z, hi_z in ((0, d), (1, d - 1), (d // 2, d // 2 + 1)):
+        args = _packed_args(du, t, color, lo_z, hi_z, gamma)
+        got, ref = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape == (3, hi_z - lo_z, shape[1],
+                                          shape[2] // 2)
+        torch.testing.assert_close(got, ref, atol=5e-5, rtol=1e-5)
+        if (lo_z, hi_z) == (0, d):
+            parity = parity_mask(shape, HaloCtx(), dev)
+            flat = sor_halfsweep(du, t, OMEGA, parity, color)
+            torch.testing.assert_close(got, k4.pack_color(flat, color, 0),
+                                       atol=5e-5, rtol=1e-5)
+    name = "sor_gc_packed" if gamma > 0.0 else "sor_packed"
+    assert {k: n for k, n in kernels.LAUNCHES.items() if n} == {name: 3}
+
+
+def test_packed_kernels_reject_bad_inputs(dev):
+    du, t = _terms((6, 8, 8), dev)
+    args = list(_packed_args(du, t, 0, 0, 6, 0.0))
+    with pytest.raises(TypeError, match="float32 or"):
+        k4.sor_halfsweep_packed(*args[:2], args[2].half(), *args[3:])
+    with pytest.raises(TypeError, match="bfloat16"):  # g must match c
+        k4.sor_halfsweep_packed(*args[:2], args[2].bfloat16(), *args[3:])
+    with pytest.raises(ValueError, match="shape"):
+        k4.sor_halfsweep_packed(args[0], args[1][:, :5].contiguous(),
+                                *args[2:])
+    with pytest.raises(ValueError, match="contiguous"):
+        k4.sor_halfsweep_packed(args[0], du[..., ::2], *args[2:])
 
 
 @pytest.mark.parametrize("emit_warped", [False, True])
@@ -181,6 +276,27 @@ PATHS = {
     "gamma": (FlowParams(levels=2, warps=3, inner_iterations=3, sweeps=20,
                          gamma=1.0),
               {"warp_grad", "sor_gc", "median3"}),
+    "packed": (FlowParams(levels=2, warps=3, inner_iterations=3, sweeps=20,
+                          sweep_layout="packed"),
+               {"sor_packed", "warp_grad", "median3"}),
+    "packed_early_stop": (FlowParams(levels=2, warps=3, inner_iterations=3,
+                                     sweeps=20, sweep_layout="packed",
+                                     residual_tol=1e-4),
+                          {"sor_packed", "warp_grad", "median3"}),
+    "packed_gamma_bf16": (FlowParams(levels=2, warps=3, inner_iterations=3,
+                                     sweeps=20, sweep_layout="packed",
+                                     gamma=1.0, terms_dtype="bfloat16"),
+                          {"sor_gc_packed", "warp_grad", "median3"}),
+    "ladder_bf16": (FlowParams(levels=2, warps=3, inner_iterations=3,
+                               sweeps=20, terms_dtype="bfloat16"),
+                    {"sor_halfsweep", "warp_grad", "median3"}),
+    "accurate_bf16": (PRESETS["accurate-bf16"].replace(levels=2, warps=3),
+                      {"warp_grad_tricubic", "sor_gc", "median3"}),
+    # Order 4 warps and differentiates in plain PyTorch (the fused kernels
+    # compute 2-point derivatives); the sweeps and the median run kernels.
+    "order4": (FlowParams(levels=2, warps=3, inner_iterations=3, sweeps=20,
+                          deriv_order=4),
+               {"sor_halfsweep", "median3"}),
 }
 
 
@@ -197,3 +313,20 @@ def test_compute_flow_kernels_match_plain_and_launch(dev, name):
     torch.testing.assert_close(got, ref, atol=2e-4, rtol=1e-3)
     mask = syn.gradient_mask(i0, 0.75) & syn.interior_mask(shape, 4)
     assert syn.epe(got.cpu().numpy(), true, mask) < 0.05
+
+
+def test_packed_odd_width_sweeps_flat(dev):
+    """A volume of odd W (29 halves to 15) sweeps flat (K1) under
+    sweep_layout="packed", as in the reference; numpy input with no device
+    runs on the card."""
+    shape = (32, 32, 29)
+    i0, i1, _ = syn.make_pair(shape, syn.translation((1.0, -0.5, 0.5)))
+    p = FlowParams(levels=2, warps=2, inner_iterations=2, sweeps=10,
+                   sweep_layout="packed")
+    kernels.reset_launches()
+    got = compute_flow(i0, i1, p)
+    assert got.device.type == "cuda"
+    assert kernels.LAUNCHES["sor_halfsweep"] == 2 * 2 * 2 * 10 * 2
+    assert kernels.LAUNCHES["sor_packed"] == 0
+    assert torch.equal(got, compute_flow(i0, i1,
+                                         p.replace(sweep_layout="flat")))

@@ -1,6 +1,8 @@
 """The port's plain ops against the JAX package on the same inputs:
-smoothing, resampling, pyramids, flow upsampling, warping, derivatives and
-the solver terms, on odd shapes and with flows up to 6 voxels.
+smoothing, resampling, pyramids, flow upsampling, warping, derivatives
+(orders 2 and 4, the gradient-constancy terms of order 4 included) and the
+solver terms (stored in float32 and in bfloat16), on odd shapes and with
+flows up to 6 voxels.
 
 Tolerance atol 1e-5 (the JAX suite's own op tolerance between its Pallas
 and XLA twins, VALIDATION.md "Consistency gates"); rtol 1e-5 only where
@@ -100,6 +102,80 @@ def _check_derivatives(shape):
     _close(it, rit)
 
 
+def _check_central_diff4(shape):
+    vol, _, flow = _inputs(shape)
+    for x in (vol, flow):
+        for axis in (-3, -2, -1):
+            _close(pder.central_diff4(torch.from_numpy(x), axis),
+                   _jit(rder.central_diff4, 1)(jnp.asarray(x), axis))
+
+
+def _check_derivatives_order4(shape):
+    vol, vol2, _ = _inputs(shape)
+    g, it = pder.derivatives(torch.from_numpy(vol), torch.from_numpy(vol2),
+                             order=4)
+    rg, rit = _jit(lambda a, b: rder.derivatives(a, b, order=4))(
+        jnp.asarray(vol), jnp.asarray(vol2))
+    _close(g, rg)
+    _close(it, rit)
+
+
+def _check_grad_constancy_order4(shape):
+    vol, vol2, _ = _inputs(shape)
+    for reuse in (False, True):
+        rg = rder.derivatives(jnp.asarray(vol), jnp.asarray(vol2),
+                              order=4)[0] if reuse else None
+        want = rder.grad_constancy_terms(jnp.asarray(vol), jnp.asarray(vol2),
+                                         order=4, g=rg)
+        got = pder.grad_constancy_terms(
+            torch.from_numpy(vol), torch.from_numpy(vol2), order=4,
+            g=None if rg is None else torch.from_numpy(np.array(rg)))
+        for a, b in zip(got, want):
+            _close(a, b)
+
+
+def _check_compute_terms_bf16(shape):
+    """terms_dtype="bfloat16": c and g are stored in bfloat16, rounded to
+    nearest even as the reference's astype, and are bitwise the
+    reference's. (g is an input. The float32 c of the two packages differs
+    in the last bit on half the voxels, the float32 test above; a flip in
+    bfloat16 needs a value within that bit of a rounding boundary, about
+    2^-15 a voxel, and none of these shapes has one.) Everything else stays
+    float32 and is the reference's, smt of the unrounded g included."""
+    want, got = _terms_pair(shape, "bfloat16")
+
+    def widen(x):
+        return np.asarray(x.astype(jnp.float32))
+    for name in ("c", "g"):
+        assert getattr(got, name).dtype == torch.bfloat16
+        assert getattr(want, name).dtype == jnp.bfloat16
+        np.testing.assert_array_equal(getattr(got, name).float().numpy(),
+                                      widen(getattr(want, name)))
+    for name in ("sw_inv", "smt", "psi_s", "psi_d"):
+        assert getattr(got, name).dtype == torch.float32
+        _close(getattr(got, name), getattr(want, name), rtol=1e-5)
+
+
+def _terms_pair(shape, terms_dtype):
+    """(reference terms, port terms) of the same inputs."""
+    vol, _, flow = _inputs(shape, max_disp=1.0)
+    rng = np.random.default_rng(1)
+    du = (rng.normal(size=(3, *shape)) * 0.05).astype(np.float32)
+    flow = flow * 0.1
+    rp = RefParams(alpha=0.05, terms_dtype=terms_dtype)
+    pp = FlowParams(alpha=0.05, terms_dtype=terms_dtype)
+    shift = np.zeros((3, *shape), np.float32)
+    shift[2] = 0.7
+    i1 = _jit(rwarp.warp_volume)(jnp.asarray(vol), jnp.asarray(-shift))
+    rg, rit = _jit(rder.derivatives)(jnp.asarray(vol), i1)
+    want = _jit(rsol.compute_terms, 4)(rg, rit, jnp.asarray(flow),
+                                       jnp.asarray(du), rp)
+    got = psol.compute_terms(torch.from_numpy(np.array(rg)),
+                             torch.from_numpy(np.array(rit)),
+                             torch.from_numpy(flow), torch.from_numpy(du), pp)
+    return want, got
+
+
 def _check_compute_terms(shape):
     vol, _, flow = _inputs(shape, max_disp=1.0)
     rng = np.random.default_rng(1)
@@ -125,7 +201,11 @@ CHECKS = {"smooth": _check_smooth, "resize3": _check_resize3,
           "upsample_flow": _check_upsample_flow,
           "warp_volume": _check_warp_volume,
           "derivatives": _check_derivatives,
-          "compute_terms": _check_compute_terms}
+          "compute_terms": _check_compute_terms,
+          "central_diff4": _check_central_diff4,
+          "derivatives_order4": _check_derivatives_order4,
+          "grad_constancy_order4": _check_grad_constancy_order4,
+          "compute_terms_bf16": _check_compute_terms_bf16}
 
 
 @pytest.mark.parametrize("shape", SHAPES)

@@ -61,11 +61,16 @@ def test_kernels_backend_on_cpu_raises():
 
 
 def test_device_argument():
-    """Numpy input needs a device; tensor input runs where it lies, and a
-    device argument that names another place raises."""
+    """Numpy input runs on the GPU unless a device is named, and where
+    there is no GPU that raises, naming device="cpu", instead of running on
+    the CPU; tensor input runs where it lies, and a device argument that
+    names another place raises."""
     vol = np.zeros((8, 8, 8), np.float32)
-    with pytest.raises(ValueError, match="device"):
-        compute_flow(vol, vol, FlowParams(levels=1))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match=r'device="cpu"'):
+            compute_flow(vol, vol, FlowParams(levels=1))
+    assert compute_flow(vol, vol, FlowParams(levels=1, warps=1, sweeps=1),
+                        device="cpu").device.type == "cpu"
     t = torch.from_numpy(vol)
     p = FlowParams(levels=1, warps=1, inner_iterations=1, sweeps=1)
     assert compute_flow(t, t, p, device="cpu").device.type == "cpu"
@@ -74,22 +79,30 @@ def test_device_argument():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(deriv_order=4), dict(terms_dtype="bfloat16"),
-    dict(dtype="bfloat16")], ids=lambda kw: "-".join(map(str, kw.values())))
+    dict(dtype="bfloat16"), dict(terms_dtype="float16")],
+    ids=lambda kw: "-".join(map(str, kw.values())))
 def test_unsupported_settings_raise(kw):
+    """A solver dtype other than float32 raises, saying why (the reference
+    documents float32 as its only one); so does a storage type of the
+    sweep constants that the kernels have no instantiation for."""
     vol = np.zeros((8, 8, 8), np.float32)
     for backend in ("auto", "plain"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="ROADMAP") as err:
             compute_flow(vol, vol, FlowParams(levels=1, backend=backend,
                                               **kw), device="cpu")
+        assert "float32" in str(err.value)
 
 
 @pytest.mark.parametrize("kw", [
-    dict(solver="multigrid"), dict(interp="tricubic"), dict(gamma=1.0)],
+    dict(solver="multigrid"), dict(interp="tricubic"), dict(gamma=1.0),
+    dict(deriv_order=4), dict(terms_dtype="bfloat16"),
+    dict(sweep_layout="packed"), dict(sweep_layout="packed", gamma=1.0),
+    dict(solver="multigrid", terms_dtype="bfloat16")],
     ids=lambda kw: "-".join(map(str, kw.values())))
 def test_ported_settings_run(kw):
-    """Settings that raised before multigrid, tricubic and gamma were
-    ported now run, on any backend, to a finite flow."""
+    """Settings that raised before they were ported (multigrid, tricubic,
+    gamma; then order-4 stencils, bfloat16 term storage and the packed
+    layout) run, on any backend, to a finite flow."""
     i0, i1, _ = syn.make_pair((8, 8, 8), syn.translation((0.5, 0.0, 0.5)))
     for backend in ("auto", "plain"):
         p = FlowParams(levels=1, warps=2, inner_iterations=2, sweeps=4,
@@ -100,28 +113,39 @@ def test_ported_settings_run(kw):
 
 
 def test_packed_layout_runs_plain_on_cpu():
-    """The packed layout is a kernel layout: on CPU tensors the plain
-    versions serve it; it raises only where kernels would run (CUDA)."""
+    """The packed layout is served on any device: on CPU tensors the plain
+    versions of K4 and K7 run it, and the flow is bitwise the flat
+    layout's."""
     check_supported(FlowParams(sweep_layout="packed"), torch.zeros(1))
+    i0, i1, _ = syn.make_pair((8, 8, 8), syn.translation((0.5, 0.0, 0.5)))
+    p = FlowParams(levels=1, warps=2, inner_iterations=2, sweeps=4)
+    before = dict(kernels.LAUNCHES)
+    flat = compute_flow(i0, i1, p, device="cpu")
+    packed = compute_flow(i0, i1, p.replace(sweep_layout="packed"),
+                          device="cpu")
+    assert kernels.LAUNCHES == before
+    assert torch.equal(packed, flat)
 
 
 def test_reference_accurate_preset_is_served_on_the_kernel_route():
-    """The reference's ``accurate`` preset keeps its default packed layout,
-    which the JAX package never sweeps under multigrid: the check passes
-    where the kernels run. Packed SOR there still raises (K4; K7 with
-    gamma), and both reference accurate presets map onto the port's."""
-    acc = from_reference(REF_PRESETS["accurate"])
-    assert acc.sweep_layout == "packed" and acc.solver == "multigrid"
-    assert unsupported(acc, kernels=True) == []
-    assert acc.replace(sweep_layout="flat") == PRESETS["accurate"]
-    for gamma, k in ((0.0, "K4"), (1.0, "K7")):
-        sor = acc.replace(solver="sor", gamma=gamma)
-        assert unsupported(sor, kernels=False) == []
-        (msg,) = unsupported(sor, kernels=True)
-        assert "packed" in msg and f"ROADMAP queue 2, {k}" in msg
-    (msg,) = unsupported(from_reference(REF_PRESETS["accurate-bf16"]),
-                         kernels=True)
-    assert "item 5" in msg
+    """Every preset of the reference maps onto a configuration this port
+    serves, where the kernels run and where they do not: ``accurate`` and
+    ``accurate-bf16`` (packed by the reference's default, which it never
+    sweeps under multigrid; bfloat16 terms), the packed ``ladder*`` SOR
+    presets (K4; K7 with gamma), and order-4 stencils."""
+    assert set(REF_PRESETS) == set(PRESETS)
+    for name, rp in REF_PRESETS.items():
+        p = from_reference(rp)
+        assert p.sweep_layout == "packed"
+        assert p.replace(sweep_layout="flat") == PRESETS[name]
+        for q in (p, p.replace(gamma=1.0), p.replace(deriv_order=4)):
+            assert unsupported(q) == [], name
+            for backend in ("auto", "plain"):
+                check_supported(q.replace(backend=backend), torch.zeros(1))
+    acc = from_reference(REF_PRESETS["accurate-bf16"])
+    assert acc.solver == "multigrid" and acc.terms_dtype == "bfloat16"
+    (msg,) = unsupported(acc.replace(dtype="bfloat16"))
+    assert "item 5" in msg and "only solver dtype" in msg
 
 
 @pytest.mark.parametrize("texture", ["blobs", "fourier"])
@@ -165,7 +189,36 @@ def test_library_path_follows_sources():
     assert path.parent.parts[-2:] == ("build", "tpuflow3d_torch")
     assert re.fullmatch(r"lib[0-9a-f]{16}\.so", path.name)
     assert {p.name for p in kernels.CSRC_DIR.glob("*.cu")} == {
-        "sor.cu", "warp_grad.cu", "median3.cu", "sor_gc.cu"}
+        "sor.cu", "warp_grad.cu", "median3.cu", "sor_gc.cu", "sor_packed.cu",
+        "sor_gc_packed.cu"}
+
+
+def test_library_path_follows_headers(tmp_path, monkeypatch):
+    """The hash covers the headers the sources include, so an edited
+    header rebuilds."""
+    import shutil
+    path = kernels.library_path()
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kernels.CSRC_DIR, csrc)
+    monkeypatch.setattr(kernels, "CSRC_DIR", csrc)
+    assert kernels.library_path() == path
+    assert (csrc / "terms.cuh").is_file()
+    with open(csrc / "terms.cuh", "a") as f:
+        f.write("// edited\n")
+    assert kernels.library_path() != path
+
+
+def test_every_entry_point_is_declared_and_counted():
+    """Each extern "C" entry point of the sources has its argument types
+    declared, and each kernel its launch counter."""
+    entries = set()
+    for src in kernels.CSRC_DIR.glob("*.cu"):
+        entries |= set(re.findall(r'extern "C" int (\w+)\(',
+                                  src.read_text()))
+    assert entries == set(kernels._SIGNATURES)
+    assert set(kernels.LAUNCHES) == {
+        "sor_halfsweep", "warp_grad", "median3", "warp_grad_tricubic",
+        "sor_gc", "sor_packed", "sor_gc_packed"}
 
 
 def test_kernels_build_without_fma_contraction(monkeypatch):
