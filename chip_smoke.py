@@ -8,31 +8,37 @@
 2. Builds the CUDA kernels from src/tpuflow3d_torch/csrc with nvcc (one
    nvcc per source, started together).
 3. Holds each kernel against its plain PyTorch version on the card at the
-   finest-level shapes of the 256^3 runs, and times both: K1 SOR
-   half-sweep; K2 fused trilinear warp + derivatives, with and without the
+   finest-level shapes of the 256^3 runs, and times both: K1 SOR sweeps
+   (each colour alone, the fused red+black sweep against two plain
+   half-sweeps, three fused sweeps against six); K2 fused trilinear warp + derivatives, with and without the
    warped volume; K3 3x3x3 median; K5 fused tricubic warp + derivatives at
    flows +-2 and +-6, with and without the warped volume; K6 general-SPD
-   SOR half-sweep on gradient-constancy terms, with (alpha, alpha, alpha)
-   and with an anisotropic multigrid triple; K4 and K7, the colour-packed
+   SOR sweeps (the same forms) on gradient-constancy terms, with (alpha,
+   alpha, alpha) and with an anisotropic multigrid triple, and its
+   one-block form on a 16^3 system; K4 and K7, the colour-packed
    forms of K1 and K6, at (3, 256, 256, 128); and the bfloat16-terms
    instantiations of K1, K4, K6 and K7 on the same terms stored in
    bfloat16. Beside each time stands the kernel's bound: the least time
    the card could take, the larger of its bytes (inputs read once, outputs
    written once) over 3.35 TB/s and the operations the function needs over
-   the card's float32 rate. For the flat sweeps also the bytes a half-sweep
-   needs (the inactive colour's c, g or ainv and psi_d left out). Also
-   times pack_color and unpack_colors, the overhead of the packed layout
+   the card's float32 rate. For a flat single-colour launch also the bytes
+   a half-sweep needs (the inactive colour's c, g or ainv and psi_d left
+   out). The fused sweep and two single-colour launches are timed in turns.
+   Also times pack_color and unpack_colors, the overhead of the packed layout
    per inner iteration.
 4. Drives ``tpuflow3d_torch.compute_flow`` with ``PRESETS["ladder256"]`` on
    a 256^3 blob translation, once through the kernels (backend "auto") and
    once plain; checks that the path's kernels (K1, K2, K3) and no other
-   were launched, that the two flows agree, and the EPE of each.
-5. The same for ``PRESETS["accurate"]`` (multigrid, tricubic, early stop;
-   K5, K6 and K3) on the same pair, with EPE < 1e-3 on both runs, and a
-   torch.profiler split of a second kernel run: device busy and idle, and
+   were launched (K1 exactly 900 times: one fused launch per sweep), that
+   the two flows agree, and the EPE of each; then the torch.profiler split
+   of a second kernel run: device busy and idle, the device activities and
    the device time by kernel.
+5. The same for ``PRESETS["accurate"]`` (multigrid, tricubic, early stop;
+   K5, K6 and K3) on the same pair, with EPE < 1e-3 on both runs, and the
+   profiler split.
 6. The same for ``PRESETS["ladder256"]`` with gamma = 1 (gradient
-   constancy on SOR: K2 emitting the warped volume, K6, K3).
+   constancy on SOR: K2 emitting the warped volume, K6 729 times (one
+   launch per sweep, one per inner iteration on the 16^3 level), K3).
 7. The same for ``PRESETS["ladder256"]`` with ``sweep_layout="packed"``
    (the reference's default layout: K4 in place of K1, 1800 launches).
 8. The same with gamma = 1 as well (K7 in place of K6, 1800 launches).
@@ -50,6 +56,7 @@ nothing of JAX.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -60,9 +67,9 @@ ROOT = Path(__file__).resolve().parent
 SHAPE = (256, 256, 256)
 SHIFT = (1.5, -1.0, 0.75)
 FLOW_ATOL, FLOW_RTOL = 2e-4, 1e-3
-TOLS = {"sor_halfsweep": (5e-5, 1e-5), "warp_grad": (1e-5, 1e-5),
+TOLS = {"sor_halfsweep": (0.0, 0.0), "warp_grad": (1e-5, 1e-5),
         "median3": (0.0, 0.0), "warp_grad_tricubic": (1e-5, 1e-5),
-        "sor_gc": (5e-5, 1e-5), "sor_packed": (5e-5, 1e-5),
+        "sor_gc": (0.0, 0.0), "sor_packed": (5e-5, 1e-5),
         "sor_gc_packed": (5e-5, 1e-5)}
 # The card's peaks (NVIDIA's H100 SXM data sheet): device memory and
 # float32 arithmetic outside the tensor cores.
@@ -104,29 +111,36 @@ SOURCES = {
     "sor_gc_packed": ("src/tpuflow3d_torch/csrc/sor_gc_packed.cu",
                       "src/tpuflow3d/pallas/sor_gc_packed.py:102"),
 }
-# kernel -> a part of its device function's name in a profiler trace.
-KERNEL_SYMBOLS = {"sor_halfsweep": "::sor_halfsweep_kernel<",
-                  "warp_grad": "::warp_grad_kernel<false>",
-                  "median3": "::median3_kernel(",
-                  "warp_grad_tricubic": "::warp_grad_kernel<true>",
-                  "sor_gc": "::sor_halfsweep_gc_kernel<",
-                  "sor_packed": "::sor_halfsweep_packed_kernel<",
-                  "sor_gc_packed": "::sor_halfsweep_gc_packed_kernel<"}
+# kernel -> a pattern that its device functions' names match in a profiler
+# trace. K1 and K6 share the templates of csrc/sor_sweep.cuh (colour_kernel,
+# fused_kernel, resident_kernel<terms type, general system, ...>): the second
+# template argument tells them apart.
+KERNEL_SYMBOLS = {
+    "sor_halfsweep": r"tf3d_sweep::\w+_kernel<[\w ]+, *(false|\(bool\)0)",
+    "warp_grad": r"::warp_grad_kernel<(false|\(bool\)0)>",
+    "median3": r"::median3_kernel\(",
+    "warp_grad_tricubic": r"::warp_grad_kernel<(true|\(bool\)1)>",
+    "sor_gc": r"tf3d_sweep::\w+_kernel<[\w ]+, *(true|\(bool\)1)",
+    "sor_packed": r"::sor_halfsweep_packed_kernel<",
+    "sor_gc_packed": r"::sor_halfsweep_gc_packed_kernel<"}
 # path -> (preset, changes, the kernels it must launch, EPE limit). A kernel
 # maps to the launch count the path must show exactly, or to None for any
-# count above 0; 1800 is 5 levels (all of even W) x 3 warps x 3 inner
-# iterations x 20 sweeps x 2 colours. The JAX package's TPU records:
+# count above 0; 900 is 5 levels (all of even W) x 3 warps x 3 inner
+# iterations x 20 sweeps, one fused red+black launch each, and 1800 the same
+# x 2 colours. K6 runs the 20 sweeps of an inner iteration on the coarsest
+# level (16^3 = 4096 voxels) in one launch of one block: 4 x 180 + 9 = 729.
+# The JAX package's TPU records:
 # ladder256 0.0179 on its bench input; accurate 3.4e-4 and its accuracy
 # gate 1e-3.
 PATHS = {
     "ladder256": ("ladder256", {},
-                  {"sor_halfsweep": None, "warp_grad": None, "median3": None},
+                  {"sor_halfsweep": 900, "warp_grad": None, "median3": None},
                   0.03),
     "accurate": ("accurate", {},
                  {"warp_grad_tricubic": None, "sor_gc": None,
                   "median3": None}, 1e-3),
     "gamma": ("ladder256", {"gamma": 1.0},
-              {"warp_grad": None, "sor_gc": None, "median3": None}, 0.03),
+              {"warp_grad": None, "sor_gc": 729, "median3": None}, 0.03),
     "packed": ("ladder256", {"sweep_layout": "packed"},
                {"sor_packed": 1800, "warp_grad": None, "median3": None},
                0.03),
@@ -248,7 +262,7 @@ def profile_split(torch, run) -> None:
         log(f"[profile]   {t / 1e3:9.2f} ms {100 * t / busy:5.1f}% "
             f"{n:7d}x  {name[:110]}")
     for kernel, symbol in KERNEL_SYMBOLS.items():
-        hits = [v for name, v in by_name.items() if symbol in name]
+        hits = [v for name, v in by_name.items() if re.search(symbol, name)]
         t, n = sum(v[0] for v in hits), sum(v[1] for v in hits)
         log(f"[profile]   {kernel}: {t / 1e3:.2f} ms, {100 * t / busy:.1f}% "
             f"of busy, {n} launches")
@@ -272,8 +286,9 @@ def main() -> None:
     from tpuflow3d_torch.derivatives import derivatives, grad_constancy_terms
     from tpuflow3d_torch.grid import HaloCtx
     from tpuflow3d_torch.kernels.median3 import median3 as k_median3
-    from tpuflow3d_torch.kernels.sor import sor_halfsweep as k_sor
-    from tpuflow3d_torch.kernels.sor_gc import sor_halfsweep_gc as k_sor_gc
+    from tpuflow3d_torch.kernels.sor import sor_halfsweep as k_sor, sor_sweeps
+    from tpuflow3d_torch.kernels.sor_gc import (
+        sor_gc_sweeps, sor_halfsweep_gc as k_sor_gc)
     from tpuflow3d_torch.kernels.sor_gc_packed import (
         sor_halfsweep_gc_packed as k_sor_gc_packed,
         sor_halfsweep_gc_packed_plain)
@@ -330,7 +345,8 @@ def main() -> None:
     # voxels, voxels, output values); needed bytes, for a flat sweep, are
     # those a half-sweep cannot do without. The part of a case's name
     # before the first "/" is its kernel; "bf16" marks the bfloat16-terms
-    # instantiation.
+    # instantiation, "sweep" the fused red+black sweep and "sweep3" three
+    # of them in one wrapper call.
     n_vox = SHAPE[0] * SHAPE[1] * SHAPE[2]
     plane = 4 * SHAPE[1] * SHAPE[2]  # bytes of one float32 Z plane
     summary = {}
@@ -339,6 +355,8 @@ def main() -> None:
         for case, (kern, plain, nbytes, elements, *needed) in cases.items():
             parts = case.split("/")
             name, suffix = parts[0], "_bf16" if "bf16" in parts else ""
+            prefix = next((part + "_" for part in parts
+                           if part.startswith("sweep")), "")
             got, ref = kern(), plain()
             torch.cuda.synchronize()
             err = compare(torch, name, got, ref)
@@ -363,8 +381,9 @@ def main() -> None:
                 f"({nbytes / n_vox:.1f} B/voxel: {b['bound_bytes_ms']:.3f} "
                 f"ms; operations {b['bound_operations_ms']:.3f} ms{note})")
             # One entry per kernel: the worst error, and the times and the
-            # bound of its first case (of its first bfloat16 case, under
-            # keys ending in _bf16).
+            # bound of its first case (of its first bfloat16 case under
+            # keys ending in _bf16; of the fused sweep and of three fused
+            # sweeps under keys starting with sweep_ and sweep3_).
             entry = summary.setdefault(name, {"max_abs_err": 0.0})
             entry["max_abs_err"] = max(err, entry["max_abs_err"])
             for key, val in (("ms", ms), ("plain_ms", plain_ms),
@@ -373,7 +392,7 @@ def main() -> None:
                              ("bound_bytes_ms", b["bound_bytes_ms"]),
                              ("bound_operations_ms",
                               b["bound_operations_ms"]), *extra.items()):
-                entry.setdefault(key + suffix, val)
+                entry.setdefault(prefix + key + suffix, val)
 
     # K2 and K5: the fused warps.
     flow6 = cuda_rand(6.0, (3, *SHAPE), "uniform")
@@ -411,19 +430,39 @@ def main() -> None:
     gc = grad_constancy_terms(v0, i1w, ctx, g=g)
     pg = p.replace(gamma=1.0)
     parity = parity_mask(SHAPE, ctx, dev)
-    halo_bytes = 8 * plane  # du (3 + 3 planes) and psi_s (1 + 1)
     # An anisotropic multigrid level's per-axis 1/h^2 scales.
     scale = (1.0, 0.25, 0.0625)
 
     def flat_bytes(*fields):
-        """Bytes of a flat half-sweep as its arguments have them, and the
-        bytes it needs: du, the halo planes and the output whole, psi_s
+        """Bytes of one flat launch (a half-sweep, or the fused sweep) as
+        its arguments have them (on one device no halo planes are passed),
+        and the bytes a half-sweep needs: du and the output whole, psi_s
         (the first field) whole, the other fields for the active colour
         only."""
-        whole = 2 * tensor_bytes(du) + halo_bytes
+        whole = 2 * tensor_bytes(du)
         return (whole + tensor_bytes(*fields),
                 whole + tensor_bytes(fields[0])
                 + tensor_bytes(*fields[1:]) // 2)
+
+    def plain_sweeps(tt, n):
+        x = du
+        for _ in range(n):
+            for color in (0, 1):
+                x = sor_halfsweep(x, tt, p.omega, parity, color, ctx)
+        return [x]
+
+    def in_turns(label, two_launch, fused, turns=3):
+        """Median times of the fused sweep and of two single-colour launches,
+        in turns (two, fused, fused, two) on this card."""
+        times = {"two": [], "fused": []}
+        for _ in range(turns):
+            for key, fn in (("two", two_launch), ("fused", fused),
+                            ("fused", fused), ("two", two_launch)):
+                times[key].append(cuda_ms(torch, fn, reps=5, warmup=1))
+        two, one = (statistics.median(times[k]) for k in ("two", "fused"))
+        log(f"[sweep] {label}: two single-colour launches {two:.3f} ms, "
+            f"fused sweep {one:.3f} ms, in {turns} turns")
+        return two, one
 
     def packed_args(t, color):
         """The arguments of a packed half-sweep of ``color`` on du and the
@@ -453,6 +492,10 @@ def main() -> None:
                 lambda c=color: [sor_halfsweep(du, terms, p.omega, parity, c,
                                                ctx)],
                 nbytes, n_vox // 2, needed)
+        for n in (1, 3):
+            cases[f"sor_halfsweep{tag}/sweep{'' if n == 1 else n}"] = (
+                lambda n=n: [sor_sweeps(du, terms, p.alpha, p.omega, n, ctx)],
+                lambda n=n: plain_sweeps(terms, n), n * nbytes, n * n_vox)
         variants = [("iso", gterms, (p.alpha,) * 3)]
         if terms_dtype == "float32":
             aterms = gterms._replace(
@@ -468,7 +511,27 @@ def main() -> None:
                     lambda c=color, tt=tt: [sor_halfsweep(du, tt, p.omega,
                                                           parity, c, ctx)],
                     nbytes, n_vox // 2, needed)
+            for n in (1, 3):
+                cases[f"sor_gc{tag}/{vtag}/sweep{'' if n == 1 else n}"] = (
+                    lambda n=n, tt=tt, al=alphas: [
+                        sor_gc_sweeps(du, tt, al, p.omega, n, ctx)],
+                    lambda n=n, tt=tt: plain_sweeps(tt, n), n * nbytes,
+                    n * n_vox)
         run_cases(cases)
+        al3 = (p.alpha,) * 3
+        for name, two_launch, fused in (
+                ("sor_halfsweep",
+                 lambda: k_sor(k_sor(du, terms, p.alpha, p.omega, 0, ctx),
+                               terms, p.alpha, p.omega, 1, ctx),
+                 lambda: sor_sweeps(du, terms, p.alpha, p.omega, 1, ctx)),
+                ("sor_gc",
+                 lambda: k_sor_gc(k_sor_gc(du, gterms, al3, p.omega, 0, ctx),
+                                  gterms, al3, p.omega, 1, ctx),
+                 lambda: sor_gc_sweeps(du, gterms, al3, p.omega, 1, ctx))):
+            two, one = in_turns(name + tag, two_launch, fused)
+            sfx = "_bf16" if tag else ""
+            summary[name]["sweep_two_launch_turns_ms" + sfx] = two
+            summary[name]["sweep_turns_ms" + sfx] = one
         del cases, variants
         for name, tt, kern, plain in (
                 ("sor_packed", terms, k_sor_packed, sor_halfsweep_packed_plain),
@@ -498,6 +561,46 @@ def main() -> None:
             if not torch.equal(unpack_colors(*pair, 0), du):
                 raise AssertionError("unpack_colors(pack_color(du)) != du")
             del pair, aterms
+            # K6's one-block form: the 16 coarse sweeps of a smoothing call
+            # on a 16^3 system in one launch, against the plain half-sweeps
+            # and, for its time, against 32 single-colour launches.
+            cut = lambda a: a[..., :16, :16, :16].contiguous()
+            small = cut(du)
+            st = gterms._replace(c=cut(gterms.c), ainv=cut(gterms.ainv),
+                                 psi_s=cut(gterms.psi_s))
+            st = st._replace(w=_weights(st.psi_s, (1.0,) * 3, p.alpha,
+                                        ctx)[0])
+            spar = parity_mask((16, 16, 16), ctx, dev)
+            ref = small
+            for _ in range(16):
+                for color in (0, 1):
+                    ref = sor_halfsweep(ref, st, p.omega, spar, color, ctx)
+            kernels.reset_launches()
+            got = sor_gc_sweeps(small, st, al3, p.omega, 16, ctx)
+            n_one = kernels.LAUNCHES["sor_gc"]
+            torch.cuda.synchronize()
+            err = compare(torch, "sor_gc", [got], [ref])
+            if n_one != 1:
+                raise AssertionError(f"one-block form: {n_one} launches")
+            t_one = cuda_ms(torch, lambda: sor_gc_sweeps(small, st, al3,
+                                                         p.omega, 16, ctx))
+
+            def colour_by_colour():
+                x = small
+                for _ in range(16):
+                    for color in (0, 1):
+                        x = k_sor_gc(x, st, al3, p.omega, color, ctx)
+
+            t_32 = cuda_ms(torch, colour_by_colour)
+            log(f"[kernel] sor_gc/one_block: 16 sweeps at 16^3, max |kernel "
+                f"- plain| {err:.3e}; one launch of one block {t_one:.4f} "
+                f"ms, 32 single-colour launches {t_32:.4f} ms")
+            summary["sor_gc"]["max_abs_err"] = max(
+                err, summary["sor_gc"]["max_abs_err"])
+            summary["sor_gc"]["one_block_16_sweeps_ms"] = t_one
+            summary["sor_gc"]["single_colour_32_launches_at_16_cubed_ms"] = (
+                t_32)
+            del small, st, ref, got, spar
         del terms, gterms, tt
         torch.cuda.empty_cache()
     del flow, du, g, it, i1w, gc, parity
@@ -565,7 +668,7 @@ def main() -> None:
             raise AssertionError(f"{path}: EPE {e_auto} vs plain {e_plain}, "
                                  f"limit {epe_limit}")
         del f_auto, f_plain, diff
-        if path in ("accurate", "packed"):
+        if path in ("ladder256", "accurate", "packed"):
             profile_split(torch, lambda: compute_flow(i0, i1, pp, device=dev))
         torch.cuda.empty_cache()
 

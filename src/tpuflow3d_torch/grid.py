@@ -55,6 +55,13 @@ class HaloCtx:
         it)."""
         return 1
 
+    @property
+    def has_z_neighbors(self) -> bool:
+        """Whether the local slab has neighbouring slabs along Z. Without
+        them no stencil reads across the slab's Z faces (they are global
+        faces), so a kernel wrapper needs no halo planes."""
+        return False
+
     def z0(self, d_local: int) -> int:
         """Global z index of local plane 0."""
         return 0

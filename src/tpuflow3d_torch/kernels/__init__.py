@@ -4,12 +4,14 @@ The sources are ``tpuflow3d_torch/csrc/*.cu``, each with a plain C entry
 point that launches its kernel on a given stream and returns
 ``cudaGetLastError()``:
 
-- ``sor.cu`` K1, the flat rank-1 SOR half-sweep (``kernels/sor.py``);
+- ``sor.cu`` K1, the flat rank-1 SOR sweeps (``kernels/sor.py``): one
+  colour per launch, or red and black fused in one launch;
 - ``sor_packed.cu`` K4, the same on colour-packed arrays
   (``kernels/sor_packed.py``, with the layout ``pack_color`` /
   ``unpack_colors``);
-- ``sor_gc.cu`` K6, the flat general-SPD half-sweep: gamma > 0 and every
-  multigrid level (``kernels/sor_gc.py``);
+- ``sor_gc.cu`` K6, the same for the general SPD system: gamma > 0 and
+  every multigrid level (``kernels/sor_gc.py``); K1 and K6 share their
+  kernels (``csrc/sor_sweep.cuh``);
 - ``sor_gc_packed.cu`` K7, K6 on colour-packed arrays
   (``kernels/sor_gc_packed.py``);
 - ``warp_grad.cu`` K2 (trilinear) and K5 (tricubic), the fused warp +
@@ -39,6 +41,7 @@ kernels.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -60,15 +63,17 @@ LAUNCHES = {"sor_halfsweep": 0, "warp_grad": 0, "median3": 0,
             "sor_gc_packed": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
-    # du, c, g, psi_s, psi_d, du_lo, du_hi, ps_lo, ps_hi, out, D, H, W, z0,
-    # dg, half_alpha, omega, one_minus_omega, color, terms_bf16, stream
-    "tf3d_sor_halfsweep": [_P] * 10 + [_I] * 5 + [_F] * 3 + [_I, _I, _P],
+    # du, c, g, psi_s, psi_d (K6: ainv), du_lo, du_hi, ps_lo, ps_hi, buf0,
+    # buf1, D, H, W, z0, dg, hz, hy, hx, omega, one_minus_omega, colours,
+    # nsweeps, terms_bf16, launched (int*), stream
+    "tf3d_sor_sweeps": ([_P] * 11 + [_I] * 5 + [_F] * 5 + [_I] * 3
+                        + [_IP, _P]),
+    "tf3d_sor_gc_sweeps": ([_P] * 11 + [_I] * 5 + [_F] * 5 + [_I] * 3
+                           + [_IP, _P]),
     # i1, flow, i0, g, it, i1w (may be null), D, H, W, cubic, stream
     "tf3d_warp_grad": [_P] * 6 + [_I] * 4 + [_P],
-    # du, c, ainv, psi_s, du_lo, du_hi, ps_lo, ps_hi, out, D, H, W, z0, dg,
-    # hz, hy, hx, omega, one_minus_omega, color, terms_bf16, stream
-    "tf3d_sor_halfsweep_gc": [_P] * 9 + [_I] * 5 + [_F] * 5 + [_I, _I, _P],
     # du_a, du_o, c_a, g_a, ps_a, ps_o, pd_a, duo_lo, duo_hi, pso_lo, pso_hi,
     # out, D, H, WP, z0, dg, half_alpha, omega, one_minus_omega, color,
     # terms_bf16, stream
@@ -177,13 +182,23 @@ def check_tensor(name: str, t: torch.Tensor, shape: tuple,
         raise ValueError(f"{name}: not contiguous")
 
 
-def launch(name: str, fn, *args) -> None:
+def launch(name: str, fn, *args, launched=None) -> None:
     """Call a C entry point (which launches on the current stream), raise on
-    a launch error, and count the launch."""
+    a launch error, and count the launch; an entry that launches several
+    kernels reports how many through ``launched`` (a ctypes int it was
+    passed by reference)."""
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-    LAUNCHES[name] += 1
+    LAUNCHES[name] += 1 if launched is None else launched.value
+
+
+def on_device(device: torch.device):
+    """A context in which ``device`` is the current CUDA device (a kernel
+    launches on the current one): nothing to enter when it already is."""
+    if torch.cuda.current_device() == device.index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def stream_handle(device: torch.device) -> int:

@@ -1,18 +1,27 @@
-"""K1 wrapper: red-black SOR half-sweep (``csrc/sor.cu``).
+"""K1 wrappers: red-black SOR sweeps of the rank-1 system (``csrc/sor.cu``).
 
-Replaces ``tpuflow3d/pallas/sor.py:sor_halfsweep_pallas``. The kernel reads
+Replaces ``tpuflow3d/pallas/sor.py:sor_halfsweep_pallas``. The kernels read
 the compact terms (c, g, psi_s, psi_d; c and g stored in float32 or
-bfloat16) and recomputes the neighbour weights and the Sherman-Morrison
+bfloat16) and recompute the neighbour weights and the Sherman-Morrison
 factors per voxel from the stored g, so the precomputed
 ``SolveTerms.w/sw_inv/smt`` are read only by the plain version,
-``solver.sor_halfsweep``, which this wrapper runs for CPU tensors (it too
+``solver.sor_halfsweep``, which the wrappers run for CPU tensors (it too
 remakes ``smt`` where g is stored in bfloat16).
 
-Out-of-place, as the plain version: returns a new tensor (the voxels of
-the other colour are copied), so a caller may keep the previous iterate.
+- ``sor_sweeps`` returns the iterate after n full sweeps (red, then black).
+  On one device each sweep is one launch of the fused kernel; a slab with Z
+  neighbours takes two single-colour launches per sweep, its halo planes
+  fetched before each.
+- ``sor_halfsweep`` is one colour: the single-colour kernel.
+
+Out-of-place, as the plain version: the result is a new tensor and ``du``
+is left as it was, so a caller may keep the previous iterate.
+``launch_flat`` is shared with the K6 wrappers (``kernels/sor_gc.py``).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -20,6 +29,83 @@ import torch
 from tpuflow3d_torch import kernels
 from tpuflow3d_torch.grid import HaloCtx
 from tpuflow3d_torch.solver import SolveTerms, parity_mask, sor_halfsweep as _plain
+
+RED, BLACK, RED_THEN_BLACK = 0, 1, 2
+
+
+def plain_sweeps(du: torch.Tensor, t: SolveTerms, omega: float, n: int,
+                 ctx: HaloCtx) -> torch.Tensor:
+    """n x (red half-sweep, black half-sweep) of the plain version."""
+    parity = parity_mask(tuple(du.shape[1:]), ctx, du.device)
+    for _ in range(n):
+        du = _plain(du, t, omega, parity, 0, ctx)
+        du = _plain(du, t, omega, parity, 1, ctx)
+    return du
+
+
+def launch_flat(name: str, entry: str, du: torch.Tensor, c: torch.Tensor,
+                g, psi_s: torch.Tensor, aux_name: str, aux: torch.Tensor,
+                aux_fields: int, halves: tuple, omega: float, colours: int,
+                n: int, ctx: HaloCtx) -> torch.Tensor:
+    """Validate once and call a flat sweep entry (``tf3d_sor_sweeps`` or
+    ``tf3d_sor_gc_sweeps``) on CUDA tensors: ``colours`` RED or BLACK is one
+    half-sweep (n = 1), RED_THEN_BLACK n full sweeps on a slab that is the
+    whole volume. ``aux`` is psi_d (aux_fields 0: shape (D, H, W)) or ainv
+    (6 fields); ``halves`` the half-alphas per axis (z, y, x). Counts the
+    launches under ``name`` and returns the new iterate. The kernels index
+    with 32 bits and put D and the blocks of 8 rows on the launch grid: D
+    at most 65535, H at most 524280, D*H*W below 2^31 / 6."""
+    _, d, h, w = du.shape
+    if d > 65535 or h > 8 * 65535 or 6 * d * h * w >= 2 ** 31:
+        raise ValueError(f"{name}: grid {(d, h, w)} past the kernels' limits "
+                         f"(D <= 65535, H <= 524280, 6*D*H*W < 2^31)")
+    dev = du.device
+    vol3, vol1 = (3, d, h, w), (d, h, w)
+    td = kernels.terms_dtype(c)
+    kernels.check_tensor("du", du, vol3, dev)
+    kernels.check_tensor("c", c, vol3, dev, td)
+    if g is not None:
+        kernels.check_tensor("g", g, vol3, dev, td)
+    kernels.check_tensor("psi_s", psi_s, vol1, dev)
+    kernels.check_tensor(aux_name, aux,
+                         (aux_fields, d, h, w) if aux_fields else vol1, dev)
+    planes = ()
+    if ctx.has_z_neighbors:
+        planes = (*ctx.z_halo_planes(du), *ctx.z_halo_planes(psi_s))
+        for pname, x, shape in zip(("du_lo", "du_hi", "ps_lo", "ps_hi"),
+                                   planes, ((3, 1, h, w),) * 2
+                                   + ((1, h, w),) * 2):
+            kernels.check_tensor(pname, x, shape, dev)
+    # On one device no stencil crosses the slab's Z faces: null planes.
+    plane_ptrs = [x.data_ptr() for x in planes] or [None] * 4
+    buf0 = torch.empty_like(du)
+    buf1 = torch.empty_like(du) if n > 1 else None
+    launched = ctypes.c_int(0)
+    lib = kernels.load_library()
+    hz, hy, hx = halves
+    with kernels.on_device(dev):
+        kernels.launch(
+            name, getattr(lib, entry), du.data_ptr(), c.data_ptr(),
+            None if g is None else g.data_ptr(), psi_s.data_ptr(),
+            aux.data_ptr(), *plane_ptrs, buf0.data_ptr(),
+            None if buf1 is None else buf1.data_ptr(), d, h, w,
+            int(ctx.z0(d)), ctx.d_global(d), hz, hy, hx, omega, 1.0 - omega,
+            colours, n, int(td == torch.bfloat16), ctypes.byref(launched), kernels.stream_handle(dev),
+            launched=launched)
+    return buf0 if launched.value % 2 or buf1 is None else buf1
+
+
+def _launch(du, t: SolveTerms, alpha: float, omega: float, colours: int,
+            n: int, ctx: HaloCtx) -> torch.Tensor:
+    half_alpha = float(np.float32(alpha)) * 0.5
+    return launch_flat("sor_halfsweep", "tf3d_sor_sweeps", du, t.c, t.g,
+                       t.psi_s, "psi_d", t.psi_d, 0, (half_alpha,) * 3, omega,
+                       colours, n, ctx)
+
+
+def require_cuda(name: str, du: torch.Tensor) -> None:
+    if du.device.type != "cuda":
+        raise RuntimeError(f"{name}: no kernel for {du.device}")
 
 
 def sor_halfsweep(du: torch.Tensor, t: SolveTerms, alpha: float, omega: float,
@@ -29,33 +115,27 @@ def sor_halfsweep(du: torch.Tensor, t: SolveTerms, alpha: float, omega: float,
     if du.device.type == "cpu":
         parity = parity_mask(tuple(du.shape[1:]), ctx, du.device)
         return _plain(du, t, omega, parity, color, ctx)
-    if du.device.type != "cuda":
-        raise RuntimeError(f"sor_halfsweep: no kernel for {du.device}")
-    _, d, h, w = du.shape
-    dev = du.device
-    vol3, vol1 = (3, d, h, w), (d, h, w)
-    du_lo, du_hi = ctx.z_halo_planes(du)
-    ps_lo, ps_hi = ctx.z_halo_planes(t.psi_s)
-    td = kernels.terms_dtype(t.c)
-    kernels.check_tensor("c", t.c, vol3, dev, td)
-    kernels.check_tensor("g", t.g, vol3, dev, td)
-    for name, x, shape in (("du", du, vol3), ("psi_s", t.psi_s, vol1),
-                           ("psi_d", t.psi_d, vol1),
-                           ("du_lo", du_lo, (3, 1, h, w)),
-                           ("du_hi", du_hi, (3, 1, h, w)),
-                           ("ps_lo", ps_lo, (1, h, w)),
-                           ("ps_hi", ps_hi, (1, h, w))):
-        kernels.check_tensor(name, x, shape, dev)
-    out = torch.empty_like(du)
-    lib = kernels.load_library()
-    half_alpha = float(np.float32(alpha)) * 0.5
-    with torch.cuda.device(dev):
-        kernels.launch(
-            "sor_halfsweep", lib.tf3d_sor_halfsweep,
-            du.data_ptr(), t.c.data_ptr(), t.g.data_ptr(),
-            t.psi_s.data_ptr(), t.psi_d.data_ptr(), du_lo.data_ptr(),
-            du_hi.data_ptr(), ps_lo.data_ptr(), ps_hi.data_ptr(),
-            out.data_ptr(), d, h, w, int(ctx.z0(d)), ctx.d_global(d),
-            half_alpha, omega, 1.0 - omega, int(color),
-            int(td == torch.bfloat16), kernels.stream_handle(dev))
-    return out
+    require_cuda("sor_halfsweep", du)
+    if color not in (RED, BLACK):
+        raise ValueError(f"sor_halfsweep: color {color}, expected 0 or 1")
+    return _launch(du, t, alpha, omega, int(color), 1, ctx)
+
+
+def sor_sweeps(du: torch.Tensor, t: SolveTerms, alpha: float, omega: float,
+               n: int, ctx: HaloCtx = HaloCtx()) -> torch.Tensor:
+    """du (3, D, H, W) after n full red-black sweeps: the CUDA kernels for a
+    CUDA tensor (one fused launch per sweep; with Z neighbours two
+    single-colour launches), the plain version for a CPU tensor."""
+    if n < 0:
+        raise ValueError(f"sor_sweeps: n = {n}")
+    if du.device.type == "cpu":
+        return plain_sweeps(du, t, omega, n, ctx)
+    require_cuda("sor_sweeps", du)
+    if n == 0:
+        return du
+    if not ctx.has_z_neighbors:
+        return _launch(du, t, alpha, omega, RED_THEN_BLACK, n, ctx)
+    for _ in range(n):
+        for color in (RED, BLACK):
+            du = _launch(du, t, alpha, omega, color, 1, ctx)
+    return du

@@ -18,7 +18,9 @@ trilinear prolongation -> mg_post sweeps, at the damped ``mg_omega``.
   symmetric inverse. On CUDA tensors every level's smoother is kernel K6
   (``kernels/sor_gc.py``), which takes a half-alpha per axis, so the
   anisotropic levels need no second route (the reference sweeps them in
-  XLA); the plain version is ``solver.sor_halfsweep`` on the level terms.
+  XLA), one launch per sweep, or one per smoothing call on a level of at
+  most 4096 voxels; the plain version is ``solver.sor_halfsweep`` on the
+  level terms.
 
 The streamed out-of-core pieces (``assemble_fine_system``,
 ``fine_residual``) come with the piecewise mode (ROADMAP queue 1, item 11).
@@ -162,12 +164,8 @@ def _smooth(du, lvl: MGLevel, rhs, p: FlowParams, n: int, ctx: HaloCtx):
     CUDA tensors, the plain half-sweep otherwise."""
     t = lvl.terms._replace(c=rhs)
     if use_kernels(p, du):
-        from tpuflow3d_torch.kernels.sor_gc import sor_halfsweep_gc
-        for _ in range(n):
-            for color in (0, 1):
-                du = sor_halfsweep_gc(du, t, lvl.axis_alpha, p.mg_omega,
-                                      color, ctx)
-        return du
+        from tpuflow3d_torch.kernels.sor_gc import sor_gc_sweeps
+        return sor_gc_sweeps(du, t, lvl.axis_alpha, p.mg_omega, n, ctx)
     for _ in range(n):
         du = sor_halfsweep(du, t, p.mg_omega, lvl.parity, 0, ctx)
         du = sor_halfsweep(du, t, p.mg_omega, lvl.parity, 1, ctx)

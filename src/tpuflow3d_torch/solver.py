@@ -14,10 +14,13 @@ a general SPD 3x3, whose symmetric inverse is precomputed per nonlinearity
 update (``SolveTerms.ainv``).
 
 Red/black colouring uses the *global* parity of (z+y+x). On CUDA tensors
-the SOR half-sweep runs a hand-written kernel. With
+the SOR sweeps run hand-written kernels. With
 ``sweep_layout="flat"``, and on any level of odd W: K1
 (``kernels/sor.py``) for the rank-1 system, K6 (``kernels/sor_gc.py``) for
-the general one; ``sor_halfsweep`` here is the plain version of both. With
+the general one, red and black fused in one launch per sweep, all sweeps
+of an inner iteration in one wrapper call unless the early stop or the
+residual track needs each sweep's update; ``sor_halfsweep`` here is the
+plain version of both. With
 ``sweep_layout="packed"`` at even W: K4 (``kernels/sor_packed.py``) and K7
 (``kernels/sor_gc_packed.py``) on colour-packed arrays, each with its
 plain version beside its wrapper. ``backend="plain"`` always sweeps flat
@@ -325,23 +328,24 @@ def solve_increment(g: torch.Tensor, it: torch.Tensor, flow: torch.Tensor,
               and p.backend != "plain" and it.shape[-1] % 2 == 0)
     if kernel_sweeps and not packed:
         if p.gamma > 0.0:
-            from tpuflow3d_torch.kernels.sor_gc import sor_halfsweep_gc
+            from tpuflow3d_torch.kernels.sor_gc import sor_gc_sweeps
         else:
-            from tpuflow3d_torch.kernels.sor import sor_halfsweep as sor_kernel
+            from tpuflow3d_torch.kernels.sor import sor_sweeps
 
-    def flat_sweep(du, t):
+    def flat_sweeps(du, t, n):
+        """n sweeps; the kernels take all n in one call (out-of-place: the
+        du passed in survives)."""
         if kernel_sweeps:
-            for color in (0, 1):
-                if p.gamma > 0.0:
-                    du = sor_halfsweep_gc(du, t, (p.alpha,) * 3, p.omega,
-                                          color, ctx)
-                else:
-                    du = sor_kernel(du, t, p.alpha, p.omega, color, ctx)
-            return du
-        if p.solver == "sor":
-            du = sor_halfsweep(du, t, p.omega, parity, 0, ctx)
-            return sor_halfsweep(du, t, p.omega, parity, 1, ctx)
-        return jacobi_sweep(du, t, p.jacobi_omega(), ctx)
+            if p.gamma > 0.0:
+                return sor_gc_sweeps(du, t, (p.alpha,) * 3, p.omega, n, ctx)
+            return sor_sweeps(du, t, p.alpha, p.omega, n, ctx)
+        for _ in range(n):
+            if p.solver == "sor":
+                du = sor_halfsweep(du, t, p.omega, parity, 0, ctx)
+                du = sor_halfsweep(du, t, p.omega, parity, 1, ctx)
+            else:
+                du = jacobi_sweep(du, t, p.jacobi_omega(), ctx)
+        return du
 
     def mean_update(new, old):
         """Mean |update| of a sweep; over the colour pair when packed."""
@@ -359,8 +363,13 @@ def solve_increment(g: torch.Tensor, it: torch.Tensor, flow: torch.Tensor,
             continue
         if packed:
             state, one_sweep = _packed_sweeper(du, t, p, ctx)
+        elif not (track or p.residual_tol > 0.0):
+            du = flat_sweeps(du, t, p.sweeps)
+            continue
         else:
-            state, one_sweep = du, lambda x: flat_sweep(x, t)
+            # The early stop and the residual track compare each sweep with
+            # the one before: one sweep at a time.
+            state, one_sweep = du, lambda x: flat_sweeps(x, t, 1)
         for s in range(p.sweeps):
             new = one_sweep(state)
             if track or p.residual_tol > 0.0:

@@ -1,7 +1,9 @@
-"""The CUDA kernels (K1 SOR half-sweep, K2/K5 fused trilinear/tricubic
-warp + derivatives, K3 median, K6 general-SPD SOR half-sweep, K4 and K7
-their colour-packed forms, and the bfloat16-terms instantiations of the
-four sweep kernels) against their plain PyTorch versions, on the card, and
+"""The CUDA kernels (K1 SOR sweeps, single-colour and fused red+black,
+K2/K5 fused trilinear/tricubic warp + derivatives, K3 median, K6
+general-SPD SOR sweeps with the one-block form of the small multigrid
+levels, K4 and K7 the colour-packed half-sweeps, and the bfloat16-terms
+instantiations of the four sweep kernels) against their plain PyTorch
+versions, on the card, and
 compute_flow through the kernels against plain on the ladder, ``accurate``,
 gamma, packed, bfloat16 and order-4 paths.
 
@@ -22,13 +24,14 @@ from tpuflow3d_torch import synthetic as syn
 from tpuflow3d_torch.derivatives import derivatives, grad_constancy_terms
 from tpuflow3d_torch.grid import HaloCtx
 from tpuflow3d_torch.kernels.median3 import median3 as k_median3
-from tpuflow3d_torch.kernels.sor import sor_halfsweep as k_sor
-from tpuflow3d_torch.kernels.sor_gc import sor_halfsweep_gc as k_sor_gc
+from tpuflow3d_torch.kernels.sor import sor_halfsweep as k_sor, sor_sweeps
+from tpuflow3d_torch.kernels.sor_gc import (sor_gc_sweeps,
+                                            sor_halfsweep_gc as k_sor_gc)
 from tpuflow3d_torch.kernels import sor_gc_packed as k7
 from tpuflow3d_torch.kernels import sor_packed as k4
 from tpuflow3d_torch.kernels.warp_grad import warp_grad as k_warp_grad
 from tpuflow3d_torch.median import median3
-from tpuflow3d_torch.mgsolver import build_mg_levels
+from tpuflow3d_torch.mgsolver import _weights, build_mg_levels
 from tpuflow3d_torch.solver import compute_terms, parity_mask, sor_halfsweep
 from tpuflow3d_torch.warp import warp_volume
 
@@ -132,6 +135,166 @@ def test_flat_sweeps_bf16_terms_match_plain(dev, shape, color, gamma):
            else k_sor(du, t, ALPHA, OMEGA, color))
     torch.cuda.synchronize()
     torch.testing.assert_close(got, ref, atol=5e-5, rtol=1e-5)
+
+
+# The fused and single-colour sweeps: SHAPES plus one plane (D = 1), an odd
+# cube, W % 4 == 0 past one tile in y and x, and W % 4 != 0 past one tile.
+SWEEP_SHAPES = SHAPES + [(1, 6, 10), (5, 5, 5), (3, 20, 136), (40, 18, 66)]
+
+
+def _plain_sweeps(du, t, omega, n):
+    parity = parity_mask(tuple(du.shape[1:]), HaloCtx(), du.device)
+    for _ in range(n):
+        for color in (0, 1):
+            du = sor_halfsweep(du, t, omega, parity, color)
+    return du
+
+
+@pytest.mark.parametrize("terms_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("gamma", [0.0, 1.5], ids=["k1", "k6"])
+@pytest.mark.parametrize("shape", SWEEP_SHAPES)
+def test_fused_and_single_colour_sweeps_bitwise(dev, shape, gamma,
+                                                terms_dtype):
+    """K1 and K6, float32 and bfloat16 terms: each colour alone, one fused
+    sweep and three fused sweeps, bitwise equal to the plain half-sweeps
+    (K6 runs the sweeps of a grid of at most 4096 voxels in one launch of
+    one block)."""
+    du, t = _terms(shape, dev, gamma=gamma, terms_dtype=terms_dtype)
+    kept = du.clone()
+    if gamma > 0.0:
+        half = lambda x, c: k_sor_gc(x, t, (ALPHA,) * 3, OMEGA, c)
+        sweeps = lambda x, n: sor_gc_sweeps(x, t, (ALPHA,) * 3, OMEGA, n)
+        name = "sor_gc"
+    else:
+        half = lambda x, c: k_sor(x, t, ALPHA, OMEGA, c)
+        sweeps = lambda x, n: sor_sweeps(x, t, ALPHA, OMEGA, n)
+        name = "sor_halfsweep"
+    parity = parity_mask(shape, HaloCtx(), dev)
+    kernels.reset_launches()
+    for color in (0, 1):
+        assert torch.equal(half(du, color),
+                           sor_halfsweep(du, t, OMEGA, parity, color))
+    assert torch.equal(sweeps(du, 1), _plain_sweeps(du, t, OMEGA, 1))
+    assert torch.equal(sweeps(du, 3), _plain_sweeps(du, t, OMEGA, 3))
+    torch.cuda.synchronize()
+    assert torch.equal(du, kept)  # out-of-place
+    one_block = gamma > 0.0 and shape[0] * shape[1] * shape[2] <= 4096
+    assert {k: n for k, n in kernels.LAUNCHES.items() if n} == {
+        name: 4 if one_block else 6}
+
+
+def test_sweep_wrappers_fetch_no_halo_planes_on_one_device(dev, monkeypatch):
+    du, t = _terms((6, 8, 8), dev, gamma=1.5)
+    calls = []
+    monkeypatch.setattr(HaloCtx, "z_halo_planes",
+                        lambda self, x: calls.append(1))
+    sor_sweeps(du, t, ALPHA, OMEGA, 2)
+    k_sor(du, t, ALPHA, OMEGA, 1)
+    sor_gc_sweeps(du, t, (ALPHA,) * 3, OMEGA, 2)
+    k_sor_gc(du, t, (ALPHA,) * 3, OMEGA, 0)
+    torch.cuda.synchronize()
+    assert calls == []
+
+
+def _slab_ctx(z_lo, dg, full_du, full_ps, calls):
+    """A context for the slab that starts at global plane z_lo of a volume
+    of dg planes: it has Z neighbours, and its halo planes are the
+    neighbouring planes of the full arrays (edge replicas at the ends)."""
+    class Slab(HaloCtx):
+        has_z_neighbors = True
+
+        def z0(self, d_local):
+            return z_lo
+
+        def d_global(self, d_local):
+            return dg
+
+        def z_halo_planes(self, x):
+            calls.append(1)
+            full = full_du if x.dim() == 4 else full_ps
+            zl, zh = max(z_lo - 1, 0), min(z_lo + x.shape[-3], dg - 1)
+            return (full.narrow(-3, zl, 1).contiguous(),
+                    full.narrow(-3, zh, 1).contiguous())
+    return Slab()
+
+
+@pytest.mark.parametrize("terms_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("gamma", [0.0, 1.5], ids=["k1", "k6"])
+@pytest.mark.parametrize("shape", [(12, 10, 14), (7, 9, 12), (16, 33, 72)])
+def test_single_colour_sweeps_on_slabs_with_halo_planes(dev, shape, gamma,
+                                                        terms_dtype):
+    """A slab with Z neighbours (z0 != 0, real halo planes, global depth)
+    takes the single-colour kernel with planes: each colour against the
+    slab of the plain half-sweep of the whole volume; sor_sweeps then makes
+    two launches per sweep and fetches the planes before each."""
+    du, t = _terms(shape, dev, gamma=gamma, terms_dtype=terms_dtype)
+    d = shape[0]
+    parity = parity_mask(shape, HaloCtx(), dev)
+    cut = lambda a, lo, hi: (None if a is None
+                             else a[..., lo:hi, :, :].contiguous())
+    for lo, hi in ((1, d - 1), (0, d // 2), (d // 2, d), (d // 2, d // 2 + 1)):
+        calls = []
+        ctx = _slab_ctx(lo, d, du, t.psi_s, calls)
+        ts = t._replace(c=cut(t.c, lo, hi), g=cut(t.g, lo, hi),
+                        psi_s=cut(t.psi_s, lo, hi),
+                        psi_d=cut(t.psi_d, lo, hi),
+                        ainv=cut(t.ainv, lo, hi), w=None)
+        for color in (0, 1):
+            ref = sor_halfsweep(du, t, OMEGA, parity, color)
+            got = (k_sor_gc(cut(du, lo, hi), ts, (ALPHA,) * 3, OMEGA, color,
+                            ctx) if gamma > 0.0 else
+                   k_sor(cut(du, lo, hi), ts, ALPHA, OMEGA, color, ctx))
+            assert torch.equal(got, cut(ref, lo, hi)), (lo, hi, color)
+        assert len(calls) == 4
+    # The whole volume under a context that claims neighbours: the planes
+    # are edge replicas that the face tests skip, so the bits are the
+    # fused sweep's.
+    calls = []
+    ctx = _slab_ctx(0, d, du, t.psi_s, calls)
+    kernels.reset_launches()
+    got = (sor_gc_sweeps(du, t, (ALPHA,) * 3, OMEGA, 2, ctx) if gamma > 0.0
+           else sor_sweeps(du, t, ALPHA, OMEGA, 2, ctx))
+    assert torch.equal(got, _plain_sweeps(du, t, OMEGA, 2))
+    assert sum(kernels.LAUNCHES.values()) == 4 and len(calls) == 8
+
+
+def test_sor_gc_every_multigrid_level_of_64_cubed_bitwise(dev):
+    """Every level shape of a 64^3 multigrid solve (64, 32, 16, 8, 4 cubed):
+    n sweeps through sor_gc_sweeps (one fused launch per sweep; one launch
+    of one block for a level of at most 4096 voxels), bitwise equal to the
+    plain half-sweeps."""
+    du, t = _terms((64, 64, 64), dev)
+    p = FlowParams(alpha=ALPHA, solver="multigrid")
+    rng = np.random.default_rng(6)
+    levels = build_mg_levels(t, p, HaloCtx())
+    assert [lvl.shape_global[0] for lvl in levels] == [64, 32, 16, 8, 4]
+    for lvl in levels:
+        shp = (3, *lvl.shape_global)
+        x = _t(rng.normal(size=shp) * 0.05, dev)
+        lt = lvl.terms._replace(c=_t(rng.normal(size=shp), dev))
+        for n in (2, 16):
+            ref = _plain_sweeps(x, lt, 1.3, n)
+            kernels.reset_launches()
+            assert torch.equal(sor_gc_sweeps(x, lt, lvl.axis_alpha, 1.3, n),
+                               ref)
+            small = lvl.shape_global[0] ** 3 <= 4096
+            assert kernels.LAUNCHES["sor_gc"] == (1 if small else n)
+
+
+@pytest.mark.parametrize("shape", [(4, 5, 7), (16, 16, 16), (3, 33, 40),
+                                   (17, 16, 16)])
+def test_sor_gc_sweeps_one_block_anisotropic_bitwise(dev, shape):
+    """The one-block form up to its 4096-voxel limit (and the fused form one
+    plane past it), with anisotropic alphas and bfloat16 right-hand side."""
+    du, t = _terms(shape, dev, gamma=1.5, terms_dtype="bfloat16")
+    alphas = (ALPHA, ALPHA * 0.25, ALPHA * 0.0625)
+    lvl_w = _weights(t.psi_s, (1.0, 0.25, 0.0625), ALPHA, HaloCtx())[0]
+    tt = t._replace(w=lvl_w)
+    kernels.reset_launches()
+    got = sor_gc_sweeps(du, tt, alphas, 1.3, 5)
+    n_vox = shape[0] * shape[1] * shape[2]
+    assert kernels.LAUNCHES["sor_gc"] == (1 if n_vox <= 4096 else 5)
+    assert torch.equal(got, _plain_sweeps(du, tt, 1.3, 5))
 
 
 # Packed shapes: even W, with odd D and H, a one-element row (W = 2) and
@@ -261,6 +424,39 @@ def test_kernels_reject_bad_inputs(dev):
         k_warp_grad(du[0].transpose(1, 2), du, du[1])
     with pytest.raises(ValueError, match="on "):
         k_warp_grad(du[0], du, du[1].cpu())
+    # The sweep wrappers: K1 (no ainv needed) and K6.
+    al3 = (ALPHA,) * 3
+    for call in (lambda x, tt: sor_sweeps(x, tt, ALPHA, OMEGA, 2),
+                 lambda x, tt: k_sor(x, tt, ALPHA, OMEGA, 0)):
+        with pytest.raises(TypeError, match="float32 or"):
+            call(du, t._replace(c=t.c.half()))
+        with pytest.raises(TypeError, match="bfloat16"):  # g must match c
+            call(du, t._replace(c=t.c.bfloat16()))
+        with pytest.raises(ValueError, match="shape"):
+            call(du, t._replace(psi_d=t.psi_d[:5].contiguous()))
+        with pytest.raises(ValueError, match="contiguous"):
+            call(du.transpose(2, 3), t)
+        with pytest.raises(ValueError, match="on "):
+            call(du, t._replace(psi_s=t.psi_s.cpu()))
+    with pytest.raises(ValueError, match="no ainv"):
+        sor_gc_sweeps(du, t, al3, OMEGA, 1)
+    with pytest.raises(ValueError, match="color 2"):
+        k_sor(du, t, ALPHA, OMEGA, 2)
+    _, tg = _terms((6, 8, 8), dev, gamma=1.5)
+    for call in (lambda x, tt: sor_gc_sweeps(x, tt, al3, OMEGA, 2),
+                 lambda x, tt: k_sor_gc(x, tt, al3, OMEGA, 1)):
+        with pytest.raises(ValueError, match="shape"):
+            call(du, tg._replace(ainv=tg.ainv[:5].contiguous()))
+        with pytest.raises(TypeError, match="float32"):
+            call(du.double(), tg)
+    with pytest.raises(ValueError, match="n = -1"):
+        sor_gc_sweeps(du, tg, al3, OMEGA, -1)
+    # A grid past the kernels' limits (D on the launch grid).
+    tall = torch.zeros((3, 65536, 1, 2), device=dev)
+    with pytest.raises(ValueError, match="past the kernels' limits"):
+        sor_sweeps(tall, t, ALPHA, OMEGA, 1)
+    with pytest.raises(ValueError, match="color 3"):
+        k_sor_gc(du, tg, al3, OMEGA, 3)
 
 
 # name -> (params at 32^3, the kernels its path must launch); every other
@@ -326,7 +522,8 @@ def test_packed_odd_width_sweeps_flat(dev):
     kernels.reset_launches()
     got = compute_flow(i0, i1, p)
     assert got.device.type == "cuda"
-    assert kernels.LAUNCHES["sor_halfsweep"] == 2 * 2 * 2 * 10 * 2
+    # levels x warps x inner iterations x sweeps, one fused launch each
+    assert kernels.LAUNCHES["sor_halfsweep"] == 2 * 2 * 2 * 10
     assert kernels.LAUNCHES["sor_packed"] == 0
     assert torch.equal(got, compute_flow(i0, i1,
                                          p.replace(sweep_layout="flat")))
