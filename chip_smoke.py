@@ -10,9 +10,15 @@
 3. Holds each kernel against its plain PyTorch version on the card at the
    finest-level shapes of the 256^3 runs, and times both: K1 SOR sweeps
    (each colour alone, the fused red+black sweep against two plain
-   half-sweeps, three fused sweeps against six); K2 fused trilinear warp + derivatives, with and without the
-   warped volume; K3 3x3x3 median; K5 fused tricubic warp + derivatives at
-   flows +-2 and +-6, with and without the warped volume; K6 general-SPD
+   half-sweeps, three fused sweeps against six); K2 fused trilinear warp +
+   derivatives at flows +-6, with and without the warped volume, and on a
+   smooth flow within +-2 and that flow with one voxel displaced by +40;
+   K5 fused tricubic warp + derivatives at flows +-2 and +-6, with and
+   without the warped volume, and on the smooth and the outlier flows (for
+   each warp case, how many slabs gathered from a staged box and how many
+   from device memory); K3 3x3x3 median (no halo planes on one device),
+   beside the floor of its own selection network at the min/max rate a
+   short probe measures on this card; K6 general-SPD
    SOR sweeps (the same forms) on gradient-constancy terms, with (alpha,
    alpha, alpha) and with an anisotropic multigrid triple, and its
    one-block form on a 16^3 system; K4 and K7, the colour-packed
@@ -82,8 +88,10 @@ PEAK_BYTES_PER_S, PEAK_FLOP_PER_S = 3.35e12, 67e12
 # per instruction. The median per output value: 39 comparisons, the proven
 # least that select the median of 27 values (n + min(t - 1, n - t) - 1 for
 # the t-th of n; Blum, Floyd, Pratt, Rivest, Tarjan 1973), one per
-# instruction. Neighbouring voxels share 18 of their 27 values, so shared
-# work could only lower that count: bytes bound the median either way.
+# instruction, at the min/max rate the probe measures (the rate below, one
+# per lane and clock, is replaced by it). Neighbouring voxels share 18 of
+# their 27 values, so shared work could only lower that count: bytes bound
+# the median either way.
 OPS = {"sor_halfsweep": (86, PEAK_FLOP_PER_S),
        "sor_packed": (86, PEAK_FLOP_PER_S),
        "sor_gc": (72, PEAK_FLOP_PER_S),
@@ -91,21 +99,65 @@ OPS = {"sor_halfsweep": (86, PEAK_FLOP_PER_S),
        "warp_grad": (40, PEAK_FLOP_PER_S),
        "warp_grad_tricubic": (265, PEAK_FLOP_PER_S),
        "median3": (39, PEAK_FLOP_PER_S / 2)}
-# What csrc/median3.cu's own selection network executes per output value:
-# 195 compare-exchanges of one min and one max. Not part of the bound (a
-# cheaper selection computes the same function); printed beside it.
-MEDIAN3_NETWORK_OPS = 390
+# What csrc/median3.cu's selection network executes per output value: min
+# and max instructions of the separable network (sorted rows, merged 3x3
+# blocks shared by two rows and three planes, one merge of two planes
+# shared by two output planes, an 18-instruction selection), counted in the
+# kernel's machine code: 336 FMNMX a loop step, which yields 4 output
+# values, and a step without outputs that starts each 64-plane chunk:
+# (33 * 336 - 168) / 128 = 85.3. Not part of the bound (a cheaper
+# selection computes the same function); printed beside it.
+MEDIAN3_NETWORK_OPS = 85.3
+# A throughput probe of fminf/fmaxf: 16 values a thread, compare-exchanged
+# in two alternating layers (30 min/max per iteration, 8 independent pairs
+# a layer), built with the kernels' flags.
+MINMAX_PROBE_SRC = r"""
+#include <cuda_runtime.h>
+__global__ void minmax_probe(float* out, int iters) {
+  float v[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) v[k] = (threadIdx.x * 16 + k) * 1e-3f;
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int k = 0; k < 16; k += 2) {
+      const float a = v[k], b = v[k + 1];
+      v[k] = fminf(a, b);
+      v[k + 1] = fmaxf(a, b);
+    }
+#pragma unroll
+    for (int k = 1; k < 15; k += 2) {
+      const float a = v[k], b = v[k + 1];
+      v[k] = fminf(a, b);
+      v[k + 1] = fmaxf(a, b);
+    }
+  }
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) s += v[k];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+extern "C" int minmax_probe_launch(float* out, int blocks, int iters,
+                                   void* stream) {
+  minmax_probe<<<blocks, 256, 0, (cudaStream_t)stream>>>(out, iters);
+  return (int)cudaGetLastError();
+}
+"""
+MINMAX_PER_ITER = 30
+# kernel -> (the source that holds its device code, the TPU kernel it
+# replaces, the C entry's source where another file holds the body).
 SOURCES = {
-    "sor_halfsweep": ("src/tpuflow3d_torch/csrc/sor.cu",
-                      "src/tpuflow3d/pallas/sor.py:200"),
+    "sor_halfsweep": ("src/tpuflow3d_torch/csrc/sor_sweep.cuh",
+                      "src/tpuflow3d/pallas/sor.py:200",
+                      "src/tpuflow3d_torch/csrc/sor.cu"),
     "warp_grad": ("src/tpuflow3d_torch/csrc/warp_grad.cu",
                   "src/tpuflow3d/pallas/warp_grad.py:292"),
     "median3": ("src/tpuflow3d_torch/csrc/median3.cu",
                 "src/tpuflow3d/pallas/median3.py:133"),
     "warp_grad_tricubic": ("src/tpuflow3d_torch/csrc/warp_grad.cu",
                            "src/tpuflow3d/pallas/warp_grad.py:292"),
-    "sor_gc": ("src/tpuflow3d_torch/csrc/sor_gc.cu",
-               "src/tpuflow3d/pallas/sor_gc.py:95"),
+    "sor_gc": ("src/tpuflow3d_torch/csrc/sor_sweep.cuh",
+               "src/tpuflow3d/pallas/sor_gc.py:95",
+               "src/tpuflow3d_torch/csrc/sor_gc.cu"),
     "sor_packed": ("src/tpuflow3d_torch/csrc/sor_packed.cu",
                    "src/tpuflow3d/pallas/sor_packed.py:164"),
     "sor_gc_packed": ("src/tpuflow3d_torch/csrc/sor_gc_packed.cu",
@@ -222,6 +274,34 @@ def compare(torch, name, got, ref) -> float:
                                  f"rtol {rtol} (max |diff| {worst:.3e}), or "
                                  f"non-finite output")
     return worst
+
+
+def minmax_rate(torch, kernels, dev) -> float:
+    """fminf/fmaxf per second on this card: the probe built with nvcc and
+    the kernels' flags, 8 blocks per SM of 256 threads, timed with CUDA
+    events."""
+    import ctypes
+    src = kernels.BUILD_DIR / "minmax_probe.cu"
+    lib_path = kernels.BUILD_DIR / "libminmax_probe.so"
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src.write_text(MINMAX_PROBE_SRC)
+    subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o",
+                    str(lib_path), str(src)], check=True, timeout=300)
+    fn = ctypes.CDLL(str(lib_path)).minmax_probe_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    blocks = 8 * torch.cuda.get_device_properties(dev).multi_processor_count
+    iters = 4096
+    out = torch.empty(blocks * 256, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def run():
+        if fn(out.data_ptr(), blocks, iters, stream) != 0:
+            raise RuntimeError("minmax probe: launch failed")
+
+    ms = cuda_ms(torch, run)
+    return blocks * 256 * iters * MINMAX_PER_ITER / (ms * 1e-3)
 
 
 def profile_split(torch, run) -> None:
@@ -348,7 +428,6 @@ def main() -> None:
     # instantiation, "sweep" the fused red+black sweep and "sweep3" three
     # of them in one wrapper call.
     n_vox = SHAPE[0] * SHAPE[1] * SHAPE[2]
-    plane = 4 * SHAPE[1] * SHAPE[2]  # bytes of one float32 Z plane
     summary = {}
 
     def run_cases(cases):
@@ -394,32 +473,58 @@ def main() -> None:
                               b["bound_operations_ms"]), *extra.items()):
                 entry.setdefault(prefix + key + suffix, val)
 
-    # K2 and K5: the fused warps.
+    # K2 and K5: the fused warps, on uniform random flows, on a smooth flow
+    # within +-2 (the displacements `accurate` warps with, flow_clamp 2) and
+    # on that flow with one voxel displaced by +40 (tests/torch_inputs.py
+    # makes the same fields in numpy).
     flow6 = cuda_rand(6.0, (3, *SHAPE), "uniform")
     flow2 = cuda_rand(2.0, (3, *SHAPE), "uniform")
+    axes = torch.meshgrid(*(torch.arange(n, device=dev, dtype=torch.float64)
+                            for n in SHAPE), indexing="ij")
+    smooth = torch.stack([1.9 * torch.sin(2 * torch.pi * (
+        axes[2] / 23 + axes[1] / 31 + axes[0] / 37 + k / 3))
+        for k in range(3)]).float()
+    outlier = smooth.clone()
+    outlier[:, SHAPE[0] // 2, SHAPE[1] // 2, SHAPE[2] // 2] = 40.0
+    del axes
+    warp_flows = {"2": flow2, "6": flow6, "smooth2": smooth,
+                  "outlier": outlier}
 
     def warp_bytes(emit):
         return tensor_bytes(v1, flow6, v0) + (5 if emit else 4) * 4 * n_vox
 
     cases = {}
-    cases["warp_grad"] = (
-        lambda: k_warp_grad(v1, flow6, v0, ctx),
-        lambda: plain_warp_grad(flow6, "trilinear", False),
-        warp_bytes(False), n_vox)
-    cases["warp_grad/emit"] = (
-        lambda: k_warp_grad(v1, flow6, v0, ctx, emit_warped=True),
-        lambda: plain_warp_grad(flow6, "trilinear", True),
-        warp_bytes(True), n_vox)
-    for tag, fl in (("2", flow2), ("6", flow6)):
-        for emit in (False, True):
+    for tag in ("6", "smooth2", "outlier"):
+        for emit in (False, True) if tag == "6" else (False,):
+            case = "/".join(["warp_grad"] + ([tag] if tag != "6" else [])
+                            + (["emit"] if emit else []))
+            cases[case] = (
+                lambda fl=warp_flows[tag], emit=emit: k_warp_grad(
+                    v1, fl, v0, ctx, emit_warped=emit),
+                lambda fl=warp_flows[tag], emit=emit: plain_warp_grad(
+                    fl, "trilinear", emit),
+                warp_bytes(emit), n_vox)
+    for tag in ("2", "6", "smooth2", "outlier"):
+        for emit in (False, True) if tag in ("2", "6") else (False,):
             cases[f"warp_grad_tricubic/{tag}{'/emit' if emit else ''}"] = (
-                lambda fl=fl, emit=emit: k_warp_grad(
+                lambda fl=warp_flows[tag], emit=emit: k_warp_grad(
                     v1, fl, v0, ctx, interp="tricubic", emit_warped=emit),
-                lambda fl=fl, emit=emit: plain_warp_grad(fl, "tricubic",
-                                                         emit),
+                lambda fl=warp_flows[tag], emit=emit: plain_warp_grad(
+                    fl, "tricubic", emit),
                 warp_bytes(emit), n_vox)
     run_cases(cases)
-    del cases, flow6, flow2
+    # Which branch each slab (a block's 4 sample planes) took.
+    for name, interp in (("warp_grad", "trilinear"),
+                         ("warp_grad_tricubic", "tricubic")):
+        for tag, fl in warp_flows.items():
+            tiles = torch.zeros(2, dtype=torch.int32, device=dev)
+            k_warp_grad(v1, fl, v0, ctx, interp=interp, tile_counts=tiles)
+            staged, gathered = tiles.tolist()
+            log(f"[tiles] {name}/{tag}: {staged} slabs gathered from a "
+                f"staged box, {gathered} from device memory")
+            summary[name].setdefault("slabs_staged_device_by_flow", {})[
+                tag] = [staged, gathered]
+    del cases, flow6, flow2, smooth, outlier, warp_flows
 
     # The sweeps: K1 and K6 flat, K4 and K7 packed, on the same terms, stored
     # in float32 and in bfloat16.
@@ -605,16 +710,22 @@ def main() -> None:
         torch.cuda.empty_cache()
     del flow, du, g, it, i1w, gc, parity
 
-    # K3: the median.
+    # K3: the median (no halo planes on one device), and the rate of the
+    # min/max that its selection network is made of.
+    mm_rate = minmax_rate(torch, kernels, dev)
+    log(f"[probe] fminf/fmaxf: {mm_rate / 1e12:.2f} T/s on this card (the "
+        f"bound's assumption: {OPS['median3'][1] / 1e12:.2f})")
+    OPS["median3"] = (OPS["median3"][0], mm_rate)
     x = cuda_rand(1.0, (3, *SHAPE))
     xq = torch.round(x * 4.0) / 4.0  # quantized: many ties
-    median_bytes = 2 * tensor_bytes(x) + 6 * plane  # x, lo, hi; out
+    median_bytes = 2 * tensor_bytes(x)  # x read once, out written once
     run_cases({
         "median3": (lambda: [k_median3(x, ctx)], lambda: [median3(x, ctx)],
                     median_bytes, 3 * n_vox),
         "median3/ties": (lambda: [k_median3(xq, ctx)],
                          lambda: [median3(xq, ctx)], median_bytes,
                          3 * n_vox)})
+    summary["median3"]["minmax_per_s"] = mm_rate
     del x, xq, pyr0, pyr1, v0, v1
     torch.cuda.empty_cache()
 
@@ -699,6 +810,8 @@ def main() -> None:
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],
+         **({"entry_source": SOURCES[name][2]} if len(SOURCES[name]) > 2
+            else {}),
          "launches": sum(launches[path][name] for path in PATHS),
          "launches_by_path": {path: launches[path][name] for path in PATHS},
          # No single PyTorch call computes a red-black half-sweep, the fused

@@ -34,6 +34,7 @@ from tpuflow3d_torch.median import median3
 from tpuflow3d_torch.mgsolver import _weights, build_mg_levels
 from tpuflow3d_torch.solver import compute_terms, parity_mask, sor_halfsweep
 from tpuflow3d_torch.warp import warp_volume
+from torch_inputs import make_flow, median_input
 
 pytestmark = pytest.mark.cuda
 
@@ -371,49 +372,110 @@ def test_packed_kernels_reject_bad_inputs(dev):
         k4.sor_halfsweep_packed(args[0], du[..., ::2], *args[2:])
 
 
-@pytest.mark.parametrize("emit_warped", [False, True])
-@pytest.mark.parametrize("max_disp", [2.0, 6.0])
-@pytest.mark.parametrize("shape", SHAPES)
-def test_warp_grad_tricubic_matches_plain(dev, shape, max_disp, emit_warped):
-    rng = np.random.default_rng(5)
+# Warp shapes: SHAPES (ragged against the 16 x 32 column tile) and two past
+# one 32-plane chunk in z.
+WARP_SHAPES = SHAPES + [(40, 18, 66), (70, 20, 33)]
+
+
+def _check_warp(dev, shape, flow_kind, interp, emit_warped, seed):
+    """The kernel against plain (atol 1e-5) and bitwise against the same
+    inputs on the device-memory branch; which slabs took which branch."""
+    rng = np.random.default_rng(seed)
     i0 = _t(rng.normal(size=shape), dev)
     i1 = _t(rng.normal(size=shape), dev)
-    flow = _t(rng.uniform(-max_disp, max_disp, (3, *shape)), dev)
-    i1w = warp_volume(i1, flow, interp="tricubic")
+    flow = _t(make_flow(flow_kind, shape, rng), dev)
+    i1w = warp_volume(i1, flow, interp=interp)
     ref = (*derivatives(i0, i1w), i1w)
-    got = k_warp_grad(i1, flow, i0, interp="tricubic",
-                      emit_warped=emit_warped)
+    tiles, tiles_dev = (torch.zeros(2, dtype=torch.int32, device=dev)
+                        for _ in range(2))
+    kernels.reset_launches()
+    got = k_warp_grad(i1, flow, i0, interp=interp, emit_warped=emit_warped,
+                      tile_counts=tiles)
+    dev_only = k_warp_grad(i1, flow, i0, interp=interp,
+                           emit_warped=emit_warped, staged=False,
+                           tile_counts=tiles_dev)
     torch.cuda.synchronize()
-    assert len(got) == (3 if emit_warped else 2)
-    for a, b in zip(got, ref):
+    name = "warp_grad_tricubic" if interp == "tricubic" else "warp_grad"
+    assert {k: n for k, n in kernels.LAUNCHES.items() if n} == {name: 2}
+    assert len(got) == len(dev_only) == (3 if emit_warped else 2)
+    for a, b, c in zip(got, ref, dev_only):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+        assert torch.equal(a, c)
+    staged, gathered = tiles.tolist()
+    assert staged + gathered > 0 and tiles_dev.tolist() == [0, staged + gathered]
+    if interp == "trilinear":  # no box: every slab gathers from memory
+        assert staged == 0
+    elif flow_kind == "smooth2":  # every box of a flow within +-1.9 fits
+        assert gathered == 0
+    elif flow_kind == "outlier" and np.prod(shape) > 8448:
+        # A volume larger than the box budget: the outlier's slabs gather
+        # from device memory, the others from their boxes.
+        assert staged > 0 and gathered > 0
+    return staged, gathered
 
 
-@pytest.mark.parametrize("max_disp", [2.0, 6.0])
-@pytest.mark.parametrize("shape", SHAPES)
-def test_warp_grad_matches_plain(dev, shape, max_disp):
-    rng = np.random.default_rng(2)
-    i0 = _t(rng.normal(size=shape), dev)
-    i1 = _t(rng.normal(size=shape), dev)
-    flow = _t(rng.uniform(-max_disp, max_disp, (3, *shape)), dev)
-    i1w = warp_volume(i1, flow)
-    g_ref, it_ref = derivatives(i0, i1w)
-    g, it = k_warp_grad(i1, flow, i0)
-    _, _, w = k_warp_grad(i1, flow, i0, emit_warped=True)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(g, g_ref, atol=1e-5, rtol=1e-5)
-    torch.testing.assert_close(it, it_ref, atol=1e-5, rtol=1e-5)
-    torch.testing.assert_close(w, i1w, atol=1e-5, rtol=1e-5)
+@pytest.mark.parametrize("emit_warped", [False, True])
+@pytest.mark.parametrize("max_disp", [2.0, 6.0, "smooth2", "outlier"])
+@pytest.mark.parametrize("shape", WARP_SHAPES)
+def test_warp_grad_tricubic_matches_plain(dev, shape, max_disp, emit_warped):
+    _check_warp(dev, shape, max_disp, "tricubic", emit_warped, seed=5)
 
 
-@pytest.mark.parametrize("quantize", [False, True])
-@pytest.mark.parametrize("shape", SHAPES)
-def test_median3_bitwise(dev, shape, quantize):
-    x = np.random.default_rng(3).normal(size=(3, *shape))
-    if quantize:  # many ties
-        x = np.round(x * 2.0) / 2.0
-    x = _t(x, dev)
+@pytest.mark.parametrize("emit_warped", [False, True])
+@pytest.mark.parametrize("max_disp", [2.0, 6.0, "smooth2", "outlier"])
+@pytest.mark.parametrize("shape", WARP_SHAPES)
+def test_warp_grad_matches_plain(dev, shape, max_disp, emit_warped):
+    _check_warp(dev, shape, max_disp, "trilinear", emit_warped, seed=2)
+
+
+def test_warp_grad_tricubic_reaches_both_branches_on_rough_flows(dev):
+    """Random +-6 displacements on a volume past one chunk: some slabs'
+    boxes fit and some do not."""
+    staged, gathered = _check_warp(dev, (40, 40, 70), 6.0, "tricubic",
+                                   False, seed=7)
+    assert staged > 0 and gathered > 0
+
+
+# Median shapes: W in {1, 2, 3, 5}, H = 1, D = 1, ragged against the 16 x 32
+# column tile, and past one 32-plane chunk.
+MEDIAN_SHAPES = SHAPES + [(5, 7, 1), (4, 6, 2), (3, 5, 3), (6, 4, 5),
+                          (9, 1, 12), (1, 10, 13), (1, 1, 1), (40, 18, 66),
+                          (70, 20, 33)]
+
+
+@pytest.mark.parametrize("kind", ["normal", "ties", "const", "zeros"])
+@pytest.mark.parametrize("shape", MEDIAN_SHAPES)
+def test_median3_bitwise(dev, shape, kind):
+    x = _t(median_input(kind, shape, np.random.default_rng(3)), dev)
+    kernels.reset_launches()
     assert torch.equal(k_median3(x), median3(x))
+    assert kernels.LAUNCHES["median3"] == 1
+
+
+@pytest.mark.parametrize("shape", [(12, 10, 14), (40, 18, 66)])
+def test_median3_on_slabs_with_halo_planes(dev, shape):
+    """A slab with Z neighbours takes its halo planes (the neighbouring
+    planes of the whole field): each slab is the slab of the whole field's
+    median, and the planes are fetched once a call."""
+    x = _t(np.random.default_rng(4).normal(size=(3, *shape)), dev)
+    ref = median3(x)
+    d = shape[0]
+    for lo, hi in ((1, d - 1), (0, d // 2), (d // 2, d), (d // 2, d // 2 + 1)):
+        calls = []
+        ctx = _slab_ctx(lo, d, x, None, calls)
+        got = k_median3(x[:, lo:hi].contiguous(), ctx)
+        assert torch.equal(got, ref[:, lo:hi]), (lo, hi)
+        assert len(calls) == 1
+
+
+def test_median3_fetches_no_halo_planes_on_one_device(dev, monkeypatch):
+    x = _t(np.random.default_rng(5).normal(size=(3, 6, 8, 8)), dev)
+    calls = []
+    monkeypatch.setattr(HaloCtx, "z_halo_planes",
+                        lambda self, x: calls.append(1))
+    k_median3(x)
+    torch.cuda.synchronize()
+    assert calls == []
 
 
 def test_kernels_reject_bad_inputs(dev):

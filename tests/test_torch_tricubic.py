@@ -3,7 +3,8 @@ JAX package: ``_cubic_weights``, ``warp_volume(interp="tricubic")`` with
 coordinates clamped at every face, and the K5 wrapper (which runs
 warp_volume + derivatives for CPU tensors, with and without the warped
 volume) against the JAX Pallas kernel in interpret mode (|flow| <= 2, its
-clamp) and its XLA warp + derivatives (|flow| up to 6).
+clamp) and its XLA warp + derivatives (|flow| up to 6, and the smooth +-2
+and outlier flows of tests/torch_inputs.py).
 
 Tolerance atol 1e-5, rtol 1e-5, as K2 and tests/test_pallas_warp.py
 (measured on the CPU: the weights, the warp and the fused outputs against
@@ -22,6 +23,7 @@ from tpuflow3d.pallas.warp_grad import warp_grad_pallas
 from tpuflow3d_torch import kernels
 from tpuflow3d_torch import warp as pwarp
 from tpuflow3d_torch.kernels.warp_grad import warp_grad
+from torch_inputs import make_flow
 
 torch.set_num_threads(2)
 
@@ -33,8 +35,7 @@ def _case(shape, max_disp, seed=0):
     rng = np.random.default_rng(seed)
     i0 = rng.normal(size=shape).astype(np.float32)
     i1 = rng.normal(size=shape).astype(np.float32)
-    flow = rng.uniform(-max_disp, max_disp, (3, *shape)).astype(np.float32)
-    return i0, i1, flow
+    return i0, i1, make_flow(max_disp, shape, rng)
 
 
 def test_cubic_weights_match_reference():
@@ -49,7 +50,7 @@ def test_cubic_weights_match_reference():
     np.testing.assert_array_equal([w[0].item() for w in got], [0, 1, 0, 0])
 
 
-@pytest.mark.parametrize("max_disp", [0.5, 2.0, 6.0])
+@pytest.mark.parametrize("max_disp", [0.5, 2.0, 6.0, "smooth2", "outlier"])
 @pytest.mark.parametrize("shape", SHAPES)
 def test_warp_volume_matches_reference(shape, max_disp):
     """|flow| up to 6 on dims of 6 to 24 pushes coordinates past every
@@ -108,7 +109,16 @@ def test_fused_matches_pallas_kernel(shape, emit_warped):
 
 @pytest.mark.parametrize("shape", SHAPES)
 def test_fused_matches_xla_beyond_the_clamp(shape):
-    i0, i1, flow = _case(shape, 6.0, seed=1)
+    _check_fused_against_xla(*_case(shape, 6.0, seed=1))
+
+
+@pytest.mark.parametrize("flow", ["smooth2", "outlier"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_fused_matches_xla_on_smooth_and_outlier_flows(shape, flow):
+    _check_fused_against_xla(*_case(shape, flow, seed=2))
+
+
+def _check_fused_against_xla(i0, i1, flow):
     got = _wrapped(i0, i1, flow, True)
     i1w = rwarp.warp_volume(jnp.asarray(i1), jnp.asarray(flow),
                             interp="tricubic")

@@ -1,7 +1,8 @@
 """The port's fused warp + derivatives (the K2 wrapper, which runs its plain
 version warp_volume + derivatives for CPU tensors) against the JAX
 package's Pallas kernel in interpret mode (|flow| <= 2, the kernel's
-clamp) and against its XLA warp + derivatives (|flow| up to 6).
+clamp) and against its XLA warp + derivatives (|flow| up to 6; the smooth
++-2 and outlier flows of tests/torch_inputs.py).
 
 Tolerance atol 1e-5, rtol 1e-5 (tests/test_pallas_warp.py)."""
 
@@ -16,6 +17,7 @@ from tpuflow3d.pallas.warp_grad import warp_grad_pallas
 from tpuflow3d.warp import warp_volume as ref_warp_volume
 from tpuflow3d_torch import kernels
 from tpuflow3d_torch.kernels.warp_grad import warp_grad
+from torch_inputs import make_flow
 
 torch.set_num_threads(2)
 
@@ -26,7 +28,7 @@ def _case(shape, max_disp, seed=0):
     rng = np.random.default_rng(seed)
     i0 = rng.normal(size=shape).astype(np.float32)
     i1 = rng.normal(size=shape).astype(np.float32)
-    flow = rng.uniform(-max_disp, max_disp, (3, *shape)).astype(np.float32)
+    flow = make_flow(max_disp, shape, rng)
     before = dict(kernels.LAUNCHES)
     g, it = warp_grad(torch.from_numpy(i1), torch.from_numpy(flow),
                       torch.from_numpy(i0))
@@ -47,7 +49,7 @@ def test_matches_pallas_kernel(shape):
     _check(got, want)
 
 
-@pytest.mark.parametrize("max_disp", [1.0, 6.0])
+@pytest.mark.parametrize("max_disp", [1.0, 6.0, "smooth2", "outlier"])
 @pytest.mark.parametrize("shape", [(7, 9, 11), (12, 10, 14)])
 def test_matches_xla_warp_and_derivatives(shape, max_disp):
     (i0, i1, flow), got = _case(shape, max_disp, seed=1)
