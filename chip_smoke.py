@@ -22,7 +22,8 @@
    SOR sweeps (the same forms) on gradient-constancy terms, with (alpha,
    alpha, alpha) and with an anisotropic multigrid triple, and its
    one-block form on a 16^3 system; K4 and K7, the colour-packed
-   forms of K1 and K6, at (3, 256, 256, 128); and the bfloat16-terms
+   forms of K1 and K6, at (3, 256, 256, 128), with copied halo planes and
+   with null ones (bitwise the same); and the bfloat16-terms
    instantiations of K1, K4, K6 and K7 on the same terms stored in
    bfloat16. Beside each time stands the kernel's bound: the least time
    the card could take, the larger of its bytes (inputs read once, outputs
@@ -53,6 +54,26 @@
 10. Times the flat and the packed layout end to end in turns (flat, packed,
    packed, flat; three turns), with and without gamma, and prints the
    median of each; the packed path also gets the profiler split.
+11-14. The out-of-core mode, ``piecewise.compute_flow_piecewise`` with
+   64-plane chunks. Before each path runs, ``[window:<path>]`` holds the
+   kernels in the forms that path gives them, on every level of its own
+   pyramid: K2/K5 on its warp slab, K1/K6 one colour on its trapezoid or
+   fused slab (its omega, its system: the terms made by its own phases),
+   K3 on its median slab (the fused pass's clamped-global gather), each at
+   its first, an interior and its last z0, bitwise against the plain
+   version, and timed beside the bound on the finest level; the run then
+   records every form it launches and fails if one was not held so.
+   ``ladder256`` (flow clamp 4) through the kernels against plain (exactly
+   K1, K2, K3; K1 5040 times), with the profiler split, then with a
+   checkpoint directory and resumed from it (``[stream:ladder256]``); one
+   inner iteration, the fused pass against the phases, their gap at 64^3,
+   128^3 and 256^3, and a fault planted in the fused pass that the gate
+   must reject (``[stream:fused]``); ``ladder512`` at 512^3, the full
+   width, the pair made on the card, against in-core, with the phase
+   times, both device peaks and the host's memory
+   (``[stream:ladder512]``); ``accurate`` at 256^3 against in-core
+   (``[stream:accurate]``). The streamed-vs-in-core gate is the JAX
+   package's (max |diff| < 5e-2, mean < 1e-2, |dEPE| < 0.02).
 
 Every failure raises, so the exit code is non-zero. The last two lines are
 a JSON summary of the kernels and {"ok": true, "device": {...}}. Imports
@@ -61,13 +82,17 @@ nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 SHAPE = (256, 256, 256)
@@ -205,10 +230,53 @@ PATHS = {
 }
 # Turns of (flat, packed, packed, flat) in the end-to-end layout comparison.
 LAYOUT_TURNS = 3
+# The streamed (out-of-core) paths, phases 11-14: compute_flow_piecewise with
+# Z-chunks of STREAM_CHUNK planes. path -> (preset, changes, the kernels it
+# must launch, EPE limit; the fused path is held to the in-core EPE
+# instead), as PATHS. With 64-plane chunks a level of depth D
+# takes ceil(D/64) + 1 trapezoid launches of 2 x 20 single-colour K1
+# half-sweeps per inner iteration: 256^3 levels 5+3+2+2+2 = 14 launches,
+# x 40 x 3 warps x 3 inner iterations = 5040 K1 (fused, one inner
+# iteration: 14 x 40 x 3 = 1680); 512^3 9+5+3+2+2+2 = 23: 8280.
+STREAM_CHUNK = 64
+STREAM_PATHS = {
+    "stream:ladder256": ("ladder256", {"flow_clamp": 4.0},
+                         {"sor_halfsweep": 5040, "warp_grad": None,
+                          "median3": None}, 0.03),
+    "stream:fused": ("ladder256", {"flow_clamp": 4.0, "inner_iterations": 1},
+                     {"sor_halfsweep": 1680, "warp_grad": None,
+                      "median3": None}, None),
+    "stream:ladder512": ("ladder512", {"flow_clamp": 4.0},
+                         {"sor_halfsweep": 8280, "warp_grad": None,
+                          "median3": None}, 0.03),
+    "stream:accurate": ("accurate", {},
+                        {"warp_grad_tricubic": None, "sor_gc": None,
+                         "median3": None}, 1e-3),
+}
+# The JAX package's streamed-vs-in-core gate (tests/test_piecewise.py:61-64):
+# max |diff| and mean |diff| of the flows, |difference of the EPEs|.
+STREAM_GATE = (5e-2, 1e-2, 0.02)
+# The fused pass against the phases, rtol 0 as the JAX package's gate
+# (tests/test_piecewise.py:140). Its atol of 1e-6 holds only at that test's
+# sizes: a slab-local warp coordinate z + s_z rounds with the slab's origin,
+# which the two passes place apart, and the gap grows with the volume in
+# both packages (on the CPU, tests/test_torch_piecewise.py's fused_gaps:
+# 2.5e-6 in the port and 1.7e-6 in the JAX package at 32^3). The limit sits
+# at about twice the 256^3 reading on the card (8.9e-6); a fault in the
+# fused pass (its carry band read one plane off) moves the flow by ~0.6,
+# which phase 12 plants and requires the gate to reject.
+FUSED_ATOL = 2e-5
+
+
+START = time.perf_counter()
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def elapsed() -> str:
+    return f"(at {time.perf_counter() - START:.0f} s)"
 
 
 def gpu_name_and_power_limit() -> str:
@@ -346,6 +414,574 @@ def profile_split(torch, run) -> None:
         t, n = sum(v[0] for v in hits), sum(v[1] for v in hits)
         log(f"[profile]   {kernel}: {t / 1e3:.2f} ms, {100 * t / busy:.1f}% "
             f"of busy, {n} launches")
+    # Copies on the device (memcpy, and PyTorch's copy kernels, which
+    # contiguous() and the halo-plane fetches launch).
+    hits = [v for name, v in by_name.items() if re.search(r"(?i)copy", name)]
+    log(f"[profile]   copies: {sum(v[1] for v in hits)} device activities, "
+        f"{sum(v[0] for v in hits) / 1e3:.2f} ms")
+
+
+def check_launches(label: str, launches: dict, expected: dict) -> None:
+    """Raise unless exactly the expected kernels launched, each as often as
+    given (None: any count above 0)."""
+    ran = {k for k, n in launches.items() if n > 0}
+    if ran != set(expected):
+        raise AssertionError(f"{label} launched {sorted(ran)}, expected "
+                             f"{sorted(expected)}")
+    for name, count in expected.items():
+        if count is not None and launches[name] != count:
+            raise AssertionError(f"{label}: {launches[name]} launches of "
+                                 f"{name}, expected {count}")
+
+
+@contextlib.contextmanager
+def recording_forms(forms: set):
+    """For the length of the block, wrap the wrappers of the kernels that
+    the streamed mode runs on slabs (K1 and K6 one colour, K2/K5, K3) so
+    that each call adds its form to ``forms``: (kernel, slab shape, omega)
+    for a sweep, (kernel, slab shape, emit) for a warp, (kernel, shape)
+    for the median. The wrapped functions count their launches as
+    before; the mode imports the wrappers at the call."""
+    from tpuflow3d_torch.kernels import median3 as m3, sor as k1, sor_gc as k6
+    from tpuflow3d_torch.kernels import warp_grad as kw
+
+    def warp_key(i1, flow, i0, ctx=None, interp="trilinear",
+                 emit_warped=False, **_):
+        name = "warp_grad_tricubic" if interp == "tricubic" else "warp_grad"
+        return name, tuple(i1.shape), bool(emit_warped)
+
+    keys = {(k1, "sor_halfsweep"): lambda du, t, alpha, omega, *_, **__: (
+                "sor_halfsweep", tuple(du.shape), float(omega)),
+            (k6, "sor_halfsweep_gc"): lambda du, t, alpha, omega, *_, **__: (
+                "sor_gc", tuple(du.shape), float(omega)),
+            (kw, "warp_grad"): warp_key,
+            (m3, "median3"): lambda x, *_, **__: ("median3", tuple(x.shape))}
+    saved = {}
+    for (mod, attr), key in keys.items():
+        fn = saved[mod, attr] = getattr(mod, attr)
+
+        def rec(*a, fn=fn, key=key, **kw_):
+            forms.add(key(*a, **kw_))
+            return fn(*a, **kw_)
+        setattr(mod, attr, rec)
+    try:
+        yield forms
+    finally:
+        for (mod, attr), fn in saved.items():
+            setattr(mod, attr, fn)
+
+
+def window_forms(p, shape, chunk: int) -> list:
+    """The slab forms that compute_flow_piecewise (temporal_block, fuse)
+    gives the kernels on a level of global shape ``shape``, as its loops
+    cut them: (kind, planes, the z0 of every launch, detail). kind "warp":
+    detail = emit; "sweep": (omega, system: "rank1", "gc" or "mg");
+    "median": detail = whether the slab is the clamped-global gather."""
+    from tpuflow3d_torch.mgsolver import mg_shapes
+    from tpuflow3d_torch.piecewise import stream_margin
+    dg = shape[0]
+    mw, s2 = stream_margin(p), 2 * p.sweeps
+    gamma = p.gamma > 0.0
+    n_chunks = -(-dg // chunk)
+    system = "gc" if gamma else "rank1"
+    if p.solver == "sor" and p.inner_iterations == 1:
+        # The fused pass: one slab of chunk + 2S + 2 mw planes per launch.
+        size = chunk + s2 + 2 * mw
+        zs = [k * chunk - chunk - mw for k in range(n_chunks + 1)]
+        forms = [("warp", size, zs, gamma),
+                 ("sweep", size, zs, (p.omega, system))]
+        return forms + ([("median", size, zs, True)] if p.median else [])
+    trapezoid = [(k - 1) * chunk - 1 for k in range(n_chunks + 1)]
+    forms = [("warp", chunk + 2 * mw, [z - mw for z in range(0, dg, chunk)],
+              gamma)]
+    if p.solver == "multigrid":
+        smooths = ((p.mg_pre, p.mg_post) if len(mg_shapes(shape, 1)) > 1
+                   else (p.mg_pre, p.mg_coarse_sweeps))
+        forms += [("sweep", chunk + 2 * n + 2, trapezoid, (p.mg_omega, "mg"))
+                  for n in sorted(set(smooths)) if n > 0]
+    else:
+        forms.append(("sweep", chunk + s2 + 2, trapezoid, (p.omega, system)))
+    if p.median:
+        forms.append(("median", chunk + 2,
+                      [z - 1 for z in range(0, dg, chunk)], False))
+    return forms
+
+
+def window_phase(torch, label, p, pyr0, pyr1, summary, checked: set,
+                 all_forms=False) -> None:
+    """The kernels in the forms a streamed path gives them (``window_forms``)
+    on every level of its pyramid (device tensors, fine to coarse), each
+    at its first launch's z0 (margins below the volume), an interior one
+    (96 where the level has one past it) and its last (margins above):
+    K2/K5 on the warp slab and K1/K6 on the trapezoid or fused slab, under
+    the window context, K3 on the median slab with null planes (the fused
+    pass's clamped-global gather). The sweep terms are made by the path's
+    own phases (``_ph_terms``/``_ph_terms_gc``/``_ph_terms_mg``, then
+    ``_slab_terms`` or ``assemble_fine_system``). Each must be bitwise
+    equal to its plain version on the same inputs; the forms go into
+    ``checked``. On the finest level, at the interior z0, each is timed
+    beside its bound. ``all_forms`` adds, on the finest level, K5 and K2
+    with and without the warped volume and K6 on gradient-constancy terms
+    on the same slabs."""
+    from tpuflow3d_torch.grid import HaloCtx
+    from tpuflow3d_torch.kernels.median3 import median3 as k_median3
+    from tpuflow3d_torch.kernels.sor import sor_halfsweep as k_sor
+    from tpuflow3d_torch.kernels.sor_gc import sor_halfsweep_gc as k_sor_gc
+    from tpuflow3d_torch.kernels.warp_grad import warp_grad as k_warp_grad
+    from tpuflow3d_torch.median import median3
+    from tpuflow3d_torch.mgsolver import assemble_fine_system
+    from tpuflow3d_torch.derivatives import derivatives
+    from tpuflow3d_torch.pipeline import warp_and_derivatives
+    from tpuflow3d_torch.piecewise import (_clamp_global_z, _ph_terms,
+                                           _ph_terms_gc, _ph_terms_mg,
+                                           _slab_terms)
+    from tpuflow3d_torch.solver import parity_mask, sor_halfsweep
+    from tpuflow3d_torch.warp import warp_volume
+
+    gen = torch.Generator(device=pyr0[0].device).manual_seed(6)
+    dev = pyr0[0].device
+    n_checked = 0
+
+    def rand(shape, scale, uniform=False):
+        if uniform:
+            return (torch.rand(shape, device=dev, generator=gen) * 2.0
+                    - 1.0) * scale
+        return torch.randn(shape, device=dev, generator=gen) * scale
+
+    def same(what, got, ref):
+        nonlocal n_checked
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        if len(got) != len(ref) or not all(
+                torch.equal(a, b) for a, b in zip(got, ref)):
+            raise AssertionError(f"[window:{label}] {what}: not bitwise "
+                                 f"equal to plain")
+        n_checked += 1
+
+    def timed(name, what, kern, plain, nbytes, elements, key):
+        ms, plain_ms = cuda_ms(torch, kern), cuda_ms(torch, plain)
+        b = bound(name, nbytes, elements)
+        log(f"[window:{label}] {what}: kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {b['bound_ms']:.3f} ms by "
+            f"{b['bound_by']}")
+        summary[name].setdefault("window", {})[f"{label} {key}"] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"]}
+
+    for li, (v0, v1) in enumerate(zip(pyr0, pyr1)):
+        dg, h, w = v0.shape
+        hw = (h, w)
+
+        def cut(x, z0, n):
+            idx = torch.arange(z0, z0 + n, device=dev).clamp(0, dg - 1)
+            return x.index_select(-3, idx).contiguous()
+
+        for kind, planes, zs, detail in window_forms(p, v0.shape,
+                                                     STREAM_CHUNK):
+            mid = (96 if zs[0] < 96 < zs[-1] else zs[len(zs) // 2])
+            n = planes * h * w
+            for z0 in dict.fromkeys((zs[0], mid, zs[-1])):
+                wctx = HaloCtx(window_z0=z0, window_d_global=dg)
+                at = f"{planes}x{h}x{w} z0={z0}"
+                time_it = li == 0 and z0 == mid
+                i0s, i1s = cut(v0, z0, planes), cut(v1, z0, planes)
+                if kind == "warp":
+                    fls = rand((3, planes, *hw), p.flow_clamp, uniform=True)
+                    forms = ([(i, e) for i in ("trilinear", "tricubic")
+                              for e in (False, True)]
+                             if all_forms and li == 0 else [(p.interp, detail)])
+                    for interp, emit in forms:
+                        name = ("warp_grad_tricubic" if interp == "tricubic"
+                                else "warp_grad")
+
+                        def kern():
+                            return k_warp_grad(i1s, fls, i0s, wctx,
+                                               interp=interp,
+                                               emit_warped=emit)
+
+                        def plain():
+                            i1w = warp_volume(i1s, fls, wctx, interp=interp)
+                            g, it = derivatives(i0s, i1w, wctx)
+                            return (g, it, i1w) if emit else (g, it)
+
+                        what = f"{name} {at}{', emit' if emit else ''}"
+                        same(what, kern(), plain())
+                        checked.add((name, (planes, h, w), emit))
+                        if time_it:
+                            timed(name, what, kern, plain,
+                                  4 * n * (5 + (5 if emit else 4)), n,
+                                  f"{at}{'/emit' if emit else ''}")
+                elif kind == "sweep":
+                    omega, system = detail
+                    fls = rand((3, planes, *hw), 1.0, uniform=True)
+                    du = rand((3, planes, *hw), 0.05)
+                    systems = ((system, "gc") if all_forms and li == 0
+                               and system == "rank1" else (system,))
+                    for sysname in systems:
+                        if sysname == "rank1":
+                            g, it, _ = warp_and_derivatives(i0s, i1s, fls, p,
+                                                            wctx)
+                            c, pss, psd = _ph_terms(g, it, fls, du, z0, dg, p)
+                            t = _slab_terms((c, g, pss, psd), p, wctx)
+                            fields = (c, g, pss, psd)
+                        elif sysname == "gc":
+                            pg = p if p.gamma > 0.0 else p.replace(gamma=1.0)
+                            c, pss, ainv = _ph_terms_gc(i0s, i1s, fls, du,
+                                                        z0, dg, pg)
+                            t = _slab_terms((c, pss, ainv), pg, wctx)
+                            fields = (c, pss, ainv)
+                        else:
+                            g, it, _ = warp_and_derivatives(i0s, i1s, fls, p,
+                                                            wctx)
+                            c, pss, d6 = _ph_terms_mg(g, it, fls, du, z0, dg,
+                                                      p)
+                            t = assemble_fine_system(c, pss, d6, p, wctx)[0]
+                            fields = (c, pss, t.ainv)
+                        name = ("sor_halfsweep" if sysname == "rank1"
+                                else "sor_gc")
+                        parity = parity_mask((planes, h, w), wctx, dev)
+                        for color in (0, 1):
+                            def kern(color=color, t=t):
+                                if name == "sor_halfsweep":
+                                    return k_sor(du, t, p.alpha, omega,
+                                                 color, wctx)
+                                return k_sor_gc(du, t, (p.alpha,) * 3, omega,
+                                                color, wctx)
+
+                            def plain(color=color, t=t):
+                                return sor_halfsweep(du, t, omega, parity,
+                                                     color, wctx)
+
+                            what = (f"{name} ({sysname}, omega {omega}) {at} "
+                                    f"colour {color}")
+                            same(what, kern(), plain())
+                            if time_it:
+                                # The arguments, the output, 4 halo planes.
+                                timed(name, what, kern, plain,
+                                      tensor_bytes(du, *fields)
+                                      + tensor_bytes(du) + 16 * h * w, n // 2,
+                                      f"{at}/colour{color}")
+                        checked.add((name, (3, planes, h, w), float(omega)))
+                        del t, fields
+                else:
+                    x = torch.round(rand((3, planes, *hw), 4.0)) / 80.0
+                    if detail:
+                        x = _clamp_global_z(x, z0, dg).contiguous()
+                    what = (f"median3 {at}"
+                            f"{' (clamped-global gather)' if detail else ''}")
+                    ctx = HaloCtx()
+                    same(what, k_median3(x, ctx), median3(x, ctx))
+                    checked.add(("median3", (3, planes, h, w)))
+                    if time_it:
+                        timed("median3", what, lambda: k_median3(x, ctx),
+                              lambda: median3(x, ctx), 2 * tensor_bytes(x),
+                              3 * n, at)
+    torch.cuda.empty_cache()
+    log(f"[window:{label}] {n_checked} window-form cases over "
+        f"{len(pyr0)} levels: each bitwise equal to its plain version")
+
+
+def check_forms(label: str, forms: set, checked: set) -> None:
+    """Raise if the streamed run gave a kernel a form that no window case
+    held against its plain version."""
+    missing = sorted(forms - checked, key=str)
+    if missing:
+        raise AssertionError(f"{label}: kernel forms launched but not held "
+                             f"against plain: {missing}")
+    log(f"[{label}] every one of the {len(forms)} kernel forms it launched "
+        f"was held bitwise against plain in a window case")
+
+
+def blob_pair_on_device(torch, syn, shape, shift, seed, dev):
+    """synthetic.make_pair(shape, translation(shift), seed=seed) evaluated
+    on the card in float64 (the same blobs; the inverse of a translation
+    is exact, so i1 is the field at x - shift), returned as host float32
+    arrays: numpy needs minutes for a 512^3 pair."""
+    field = syn.BlobField(shape, seed=seed)
+    kw = dict(dtype=torch.float64, device=dev)
+    centers = torch.as_tensor(field.centers, **kw)
+    sigmas = torch.as_tensor(field.sigmas, **kw)
+    amps = torch.as_tensor(field.amps, **kw)
+    d, h, w = shape
+    yy = torch.arange(h, **kw).reshape(1, h, 1)
+    xx = torch.arange(w, **kw).reshape(1, 1, w)
+    out = []
+    for sh in ((0.0, 0.0, 0.0), shift):
+        vol = np.empty(shape, np.float32)
+        for z0 in range(0, d, 32):
+            zz = torch.arange(z0, min(z0 + 32, d), **kw).reshape(-1, 1, 1)
+            pts = (zz - sh[0], yy - sh[1], xx - sh[2])
+            acc = torch.zeros((zz.shape[0], h, w), **kw)
+            for c, s, a in zip(centers, sigmas, amps):
+                q = ((pts[0] - c[0]) / s[0]) ** 2
+                q = q + ((pts[1] - c[1]) / s[1]) ** 2
+                q = q + ((pts[2] - c[2]) / s[2]) ** 2
+                acc += a * torch.exp(-0.5 * q)
+            vol[z0:z0 + zz.shape[0]] = acc.float().cpu().numpy()
+        out.append(vol)
+    return out[0], out[1]
+
+
+def device_mask(torch, i0, quantile: float, border: int, dev):
+    """synthetic.gradient_mask(i0, quantile) & interior_mask(border),
+    computed on the card (np.gradient's differences, np.quantile's linear
+    interpolation)."""
+    v = torch.as_tensor(i0, device=dev).double()
+    mag = torch.sqrt(sum(gd * gd for gd in torch.gradient(v)))
+    flat = mag.flatten().sort().values
+    pos = quantile * (flat.numel() - 1)
+    lo = int(pos)
+    thr = flat[lo] + (flat[min(lo + 1, flat.numel() - 1)] - flat[lo]) * (
+        pos - lo)
+    mask = mag > thr
+    inner = torch.zeros_like(mask)
+    inner[border:-border, border:-border, border:-border] = True
+    return mask & inner
+
+
+def device_epe(torch, flow, shift, mask) -> float:
+    """Mean endpoint error of a flow (tensor or numpy) against a
+    translation, over a mask, in float64 on the mask's device."""
+    f = torch.as_tensor(flow, device=mask.device).double()
+    true = torch.as_tensor(shift, dtype=torch.float64,
+                           device=mask.device).reshape(3, 1, 1, 1)
+    err = torch.sqrt(((f - true) ** 2).sum(0))
+    return float(err[mask].mean())
+
+
+def stream_gate(torch, label, streamed, incore, e_s, e_c, epe_limit):
+    """The JAX package's streamed-vs-in-core gate, and the EPE limit."""
+    diff = (torch.as_tensor(streamed, device=incore.device) - incore).abs()
+    mx, mean = float(diff.max()), float(diff.mean())
+    log(f"{label} streamed vs in-core: max |diff| {mx:.3e}, mean "
+        f"{mean:.3e}; EPE streamed {e_s:.6f}, in-core {e_c:.6f} (gate max "
+        f"< {STREAM_GATE[0]}, mean < {STREAM_GATE[1]}, |dEPE| < "
+        f"{STREAM_GATE[2]}; EPE < {epe_limit})")
+    if not (mx < STREAM_GATE[0] and mean < STREAM_GATE[1]
+            and abs(e_s - e_c) < STREAM_GATE[2]
+            and max(e_s, e_c) < epe_limit):
+        raise AssertionError(f"{label}: streamed and in-core flows fail the "
+                             f"gate")
+    return mx, mean
+
+
+def host_memory() -> str:
+    """`free -g`'s memory line and this process's peak resident size."""
+    import resource
+    free = subprocess.run(["free", "-g"], capture_output=True, text=True,
+                          timeout=60).stdout.splitlines()
+    mem = next((ln for ln in free if ln.startswith("Mem:")), "?")
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+    return f"free -g: {' '.join(mem.split())}; peak RSS {rss:.1f} GiB"
+
+
+def stream_phases(torch, i0, i1, true, mask, launches, summary) -> None:
+    """Phases 11-14: compute_flow_piecewise on the card."""
+    import tempfile
+
+    from tpuflow3d_torch import PRESETS, compute_flow, kernels
+    from tpuflow3d_torch import synthetic as syn
+    from tpuflow3d_torch.grid import HaloCtx
+    from tpuflow3d_torch.piecewise import compute_flow_piecewise
+    from tpuflow3d_torch.pipeline import prepare_pyramids
+    from tpuflow3d_torch.utils.profiling import PhaseTimer
+
+    dev = torch.device("cuda", 0)
+    checked = set()   # kernel forms held bitwise against plain
+    forms = set()     # kernel forms the current path's runs launched
+
+    def params(path, **kw):
+        preset, changes, _, _ = STREAM_PATHS[path]
+        return PRESETS[preset].replace(**changes, **kw)
+
+    def windows(path, pp, pair=(i0, i1), **kw):
+        """The window forms of the path's kernels, on its own pyramid."""
+        pyr0, pyr1, _ = prepare_pyramids(torch.as_tensor(pair[0], device=dev),
+                                         torch.as_tensor(pair[1], device=dev),
+                                         pp, HaloCtx())
+        window_phase(torch, path, pp, pyr0, pyr1, summary, checked, **kw)
+        del pyr0, pyr1
+        torch.cuda.empty_cache()
+        forms.clear()
+
+    def streamed(label, pp, pair=(i0, i1), **kw):
+        """One streamed run: (flow, wall s, launches, device peak bytes);
+        the kernel forms it launches go into ``forms``."""
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        with recording_forms(forms):
+            f = compute_flow_piecewise(*pair, pp, chunk_z=STREAM_CHUNK,
+                                       device=dev, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if f.shape != (3, *pair[0].shape) or not np.isfinite(f).all():
+            raise AssertionError(f"{label}: flow of shape {f.shape} or "
+                                 f"non-finite")
+        return (f, wall, dict(kernels.LAUNCHES),
+                torch.cuda.max_memory_allocated(dev))
+
+    def incore(pp, pair=(i0, i1)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        f = compute_flow(*pair, pp, device=dev)
+        torch.cuda.synchronize()
+        return (f, time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated(dev))
+
+    # 11. ladder256 streamed: kernels against plain, then checkpoint and
+    # resume.
+    path = "stream:ladder256"
+    tag = f"[{path}]"
+    pp = params(path)
+    windows(path, pp, all_forms=True)
+    f_k, t_k, launches[path], peak_k = streamed(path, pp)
+    check_launches(path, launches[path], STREAM_PATHS[path][2])
+    f_p, t_p, _, _ = streamed(path, pp.replace(backend="plain"))
+    diff = np.abs(f_k - f_p)
+    bad = int((diff > FLOW_ATOL + FLOW_RTOL * np.abs(f_p)).sum())
+    e_k, e_p = (syn.epe(f, true, mask) for f in (f_k, f_p))
+    log(f"{tag} {elapsed()} 256^3, chunks of {STREAM_CHUNK}: kernels "
+        f"{t_k:.2f} s (device peak {peak_k / 2 ** 30:.2f} GiB), plain "
+        f"{t_p:.2f} s; launches {launches[path]}; max |kernels - plain| "
+        f"{float(diff.max()):.3e}, {bad} voxels past atol {FLOW_ATOL} rtol "
+        f"{FLOW_RTOL}; EPE kernels {e_k:.6f}, plain {e_p:.6f} (limit "
+        f"{STREAM_PATHS[path][3]})")
+    if bad or max(e_k, e_p) >= STREAM_PATHS[path][3]:
+        raise AssertionError(f"{path}: flows disagree or EPE past the limit")
+    with tempfile.TemporaryDirectory(prefix="tf3d_ckpt.") as ck:
+        f_c, t_c, _, _ = streamed(path, pp, checkpoint_dir=ck)
+        saved = sorted(n for n in os.listdir(ck) if n.endswith(".raw"))
+        f_r, t_r, n_r, _ = streamed(path, pp, checkpoint_dir=ck)
+    d_r = float(np.abs(f_r - f_c).max())
+    d_k = float(np.abs(f_c - f_k).max())
+    log(f"{tag} with a checkpoint directory {t_c:.2f} s (left {saved}); "
+        f"resumed from it {t_r:.2f} s ({n_r['sor_halfsweep']} K1 launches: "
+        f"the finest level only); max |resumed - full| {d_r:.3e} (atol "
+        f"1e-6), |checkpointed - plain run| {d_k:.3e}")
+    if d_r > 1e-6 or d_k > 1e-6 or saved != [f"flow{c}_L0.raw"
+                                             for c in range(3)]:
+        raise AssertionError(f"{path}: resume differs from the full run")
+    check_forms(path, forms, checked)
+    profile_split(torch, lambda: compute_flow_piecewise(
+        i0, i1, pp, chunk_z=STREAM_CHUNK, device=dev))
+    summary["stream"] = {path: {"kernels_s": t_k, "plain_s": t_p,
+                                "device_peak_bytes": peak_k, "epe": e_k,
+                                "max_abs_kernels_plain": float(diff.max()),
+                                "resume_max_abs": d_r}}
+    del f_p, f_c, f_r, diff
+
+    # 12. One inner iteration: the fused warp iteration against the
+    # trapezoid phases; their gap at 64^3, 128^3 and 256^3, and a fault
+    # planted in the fused pass, which the gate must reject.
+    from tpuflow3d_torch import piecewise as pw
+    path = "stream:fused"
+    pp = params(path)
+    windows(path, pp)
+    f_f, t_f, launches[path], _ = streamed(path, pp)
+    check_launches(path, launches[path], STREAM_PATHS[path][2])
+    f_u, t_u, n_u, _ = streamed(path, pp, fuse=False)
+    check_forms(path, forms, checked)
+    diff = np.abs(f_f - f_u)
+    bad = int((diff > FUSED_ATOL).sum())
+    by_plane = diff.max(axis=(0, 2, 3))
+    seam = np.isin(np.arange(by_plane.size) % STREAM_CHUNK,
+                   (0, 1, STREAM_CHUNK - 2, STREAM_CHUNK - 1))
+    e_f, e_u = (syn.epe(f, true, mask) for f in (f_f, f_u))
+    e_c = syn.epe(incore(pp)[0].cpu().numpy(), true, mask)
+    gaps = {}
+    for n in (64, 128):
+        pair = syn.make_pair((n,) * 3, syn.translation(SHIFT), seed=0)[:2]
+        gaps[n] = float(np.abs(streamed(path, pp, pair=pair)[0] - streamed(
+            path, pp, pair=pair, fuse=False)[0]).max())
+    gaps[256] = float(diff.max())
+    real = pw._ph_fused_warp_iter
+
+    def shifted(i0s, i1s, fls, carry, *rest):
+        return real(i0s, i1s, fls, torch.cat([carry[:, 1:], carry[:, -1:]],
+                                             1), *rest)
+
+    pw._ph_fused_warp_iter = shifted
+    try:
+        planted = float(np.abs(streamed(path, pp)[0] - f_u).max())
+    finally:
+        pw._ph_fused_warp_iter = real
+    log(f"[{path}] {elapsed()} fuse=True {t_f:.2f} s, launches "
+        f"{launches[path]}; fuse=False {t_u:.2f} s, launches {n_u}; max "
+        f"|fused - phases| {gaps[256]:.3e} "
+        f"({float(by_plane[seam].max()):.3e} within 2 planes of a chunk "
+        f"boundary, {float(by_plane[~seam].max()):.3e} "
+        f"elsewhere), {bad} voxels past atol {FUSED_ATOL} rtol 0; "
+        f"EPE fused {e_f:.6f}, phases {e_u:.6f}, in-core {e_c:.6f}")
+    log(f"[{path}] max |fused - phases| by size: " + ", ".join(
+        f"{n}^3 {g:.3e}" for n, g in sorted(gaps.items())) + "; with the "
+        f"carry band read one plane off (a planted fault) "
+        f"{planted:.3e} at 256^3 (the gate: atol {FUSED_ATOL})")
+    if bad or max(abs(e_f - e_c), abs(e_u - e_c)) >= STREAM_GATE[2]:
+        raise AssertionError(f"{path}: fused and phased flows disagree")
+    if planted <= FUSED_ATOL:
+        raise AssertionError(f"{path}: the gate passes a planted carry fault")
+    summary["stream"][path] = {"fused_s": t_f, "phases_s": t_u,
+                               "max_abs_fused_phases_by_size": gaps,
+                               "max_abs_planted_fault": planted,
+                               "epe": e_f, "epe_incore": e_c}
+    del f_f, f_u, f_k, diff
+
+    # 13. ladder512 at 512^3, the full width: streamed against in-core.
+    path = "stream:ladder512"
+    tag = f"[{path}]"
+    shape512, shift = (512, 512, 512), SHIFT
+    t0 = time.perf_counter()
+    pair = blob_pair_on_device(torch, syn, shape512, shift, 0, dev)
+    mask512 = device_mask(torch, pair[0], 0.75, 4, dev)
+    log(f"{tag} 512^3 blob pair, translation {shift}, made on the card: "
+        f"{time.perf_counter() - t0:.1f} s")
+    pp = params(path)
+    windows(path, pp, pair)
+    timer = PhaseTimer()
+    f_s, t_s, launches[path], peak_s = streamed(path, pp, pair=pair,
+                                                timer=timer)
+    check_launches(path, launches[path], STREAM_PATHS[path][2])
+    check_forms(path, forms, checked)
+    log(f"{tag} {elapsed()} streamed {t_s:.2f} s, device peak "
+        f"{peak_s / 2 ** 30:.2f} GiB, launches {launches[path]}; "
+        f"{host_memory()}")
+    log(f"{tag} phases: " + json.dumps(timer.report()))
+    f_c, t_c, peak_c = incore(pp, pair)
+    log(f"{tag} in-core {t_c:.2f} s, device peak {peak_c / 2 ** 30:.2f} GiB")
+    e_s, e_c = (device_epe(torch, f, shift, mask512) for f in (f_s, f_c))
+    mx, mean = stream_gate(torch, tag, f_s, f_c, e_s, e_c,
+                           STREAM_PATHS[path][3])
+    summary["stream"][path] = {
+        "streamed_s": t_s, "incore_s": t_c, "device_peak_streamed_bytes":
+        peak_s, "device_peak_incore_bytes": peak_c, "max_abs": mx,
+        "mean_abs": mean, "epe_streamed": e_s, "epe_incore": e_c,
+        "phases": timer.report()}
+    del pair, mask512, f_s, f_c
+    torch.cuda.empty_cache()
+
+    # 14. accurate streamed (streamed multigrid, K5, K6) against in-core.
+    path = "stream:accurate"
+    tag = f"[{path}]"
+    pp = params(path)
+    windows(path, pp)
+    f_s, t_s, launches[path], peak_s = streamed(path, pp)
+    check_launches(path, launches[path], STREAM_PATHS[path][2])
+    check_forms(path, forms, checked)
+    f_c, t_c, peak_c = incore(pp)
+    e_s = syn.epe(f_s, true, mask)
+    e_c = syn.epe(f_c.cpu().numpy(), true, mask)
+    log(f"{tag} {elapsed()} 256^3: streamed {t_s:.2f} s (device peak "
+        f"{peak_s / 2 ** 30:.2f} GiB, launches {launches[path]}), in-core "
+        f"{t_c:.2f} s (device peak {peak_c / 2 ** 30:.2f} GiB)")
+    mx, mean = stream_gate(torch, tag, f_s, f_c, e_s, e_c,
+                           STREAM_PATHS[path][3])
+    summary["stream"][path] = {
+        "streamed_s": t_s, "incore_s": t_c, "device_peak_streamed_bytes":
+        peak_s, "device_peak_incore_bytes": peak_c, "max_abs": mx,
+        "mean_abs": mean, "epe_streamed": e_s, "epe_incore": e_c}
+    torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -353,7 +989,6 @@ def main() -> None:
         raise SystemExit("chip_smoke.py: src/tpuflow3d_torch not found next "
                          "to this script; run it from a checkout")
     sys.path.insert(0, str(ROOT / "src"))
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -648,7 +1283,18 @@ def main() -> None:
                     lambda: [kern(*args)], lambda: [plain(*args)],
                     tensor_bytes(*args) + tensor_bytes(args[0]),
                     n_vox // 2)})
-                del args
+                # Null halo planes, what a whole volume passes: the kernel
+                # replicates its faces in place, bitwise the same.
+                nulls = args[:-9] + (None,) * 4 + args[-5:]
+                if not torch.equal(kern(*nulls), kern(*args)):
+                    raise AssertionError(f"{name}{tag}/{color}: null halo "
+                                         f"planes differ from copied ones")
+                ms_null = cuda_ms(torch, lambda: kern(*nulls))
+                log(f"[kernel] {name}{tag}/{color}/null_planes: bitwise "
+                    f"equal to the call with copied planes; {ms_null:.3f} ms")
+                summary[name].setdefault("null_planes_ms" + tag.replace(
+                    "/", "_"), ms_null)
+                del args, nulls
         if terms_dtype == "float32":
             # What the packed layout pays per inner iteration: packing du
             # and the sweep constants for both colours, and one unpack.
@@ -726,7 +1372,8 @@ def main() -> None:
                          lambda: [median3(xq, ctx)], median_bytes,
                          3 * n_vox)})
     summary["median3"]["minmax_per_s"] = mm_rate
-    del x, xq, pyr0, pyr1, v0, v1
+    del x, xq
+    del pyr0, pyr1, v0, v1
     torch.cuda.empty_cache()
 
     # 4-9. The main paths, each through the kernels, then plain.
@@ -750,14 +1397,7 @@ def main() -> None:
         tag = f"[{phase}:{path}]"
         log(f"{tag} 256^3: kernels {t_auto:.2f} s, plain {t_plain:.2f} s; "
             f"launches {launches[path]}")
-        ran = {k for k, n in launches[path].items() if n > 0}
-        if ran != set(expected):
-            raise AssertionError(f"{path} launched {sorted(ran)}, expected "
-                                 f"{sorted(expected)}")
-        for name, count in expected.items():
-            if count is not None and launches[path][name] != count:
-                raise AssertionError(f"{path}: {launches[path][name]} "
-                                     f"launches of {name}, expected {count}")
+        check_launches(path, launches[path], expected)
         for f in (f_auto, f_plain):
             if tuple(f.shape) != (3, *SHAPE) or not bool(
                     torch.isfinite(f).all()):
@@ -800,11 +1440,15 @@ def main() -> None:
             for key, pp in ((flat, pf), (packed, pk), (packed, pk),
                             (flat, pf)):
                 times[key].append(wall(pp))
-        log("[10:layouts] " + "; ".join(
+        log(f"[10:layouts] {elapsed()} " + "; ".join(
             f"{key} median {statistics.median(ts):.4f} s (min "
             f"{min(ts):.4f}, max {max(ts):.4f}, {len(ts)} runs)"
             for key, ts in times.items()))
         torch.cuda.empty_cache()
+
+    # 11-14. The streamed (out-of-core) paths.
+    stream_phases(torch, i0, i1, true, mask, launches, summary)
+    log("[stream] " + json.dumps(summary.pop("stream")))
 
     log(card)
     log(json.dumps({"kernels": [
@@ -812,8 +1456,8 @@ def main() -> None:
          "replaces": SOURCES[name][1],
          **({"entry_source": SOURCES[name][2]} if len(SOURCES[name]) > 2
             else {}),
-         "launches": sum(launches[path][name] for path in PATHS),
-         "launches_by_path": {path: launches[path][name] for path in PATHS},
+         "launches": sum(n[name] for n in launches.values()),
+         "launches_by_path": {path: n[name] for path, n in launches.items()},
          # No single PyTorch call computes a red-black half-sweep, the fused
          # warp + derivatives or a 27-point median.
          "library_ms": None,

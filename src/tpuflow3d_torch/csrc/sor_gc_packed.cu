@@ -27,7 +27,8 @@
 // the active du (6 B): 40 B/voxel against the flat K6's 64 (37 with bfloat16
 // c). Design as K4: one thread per packed element, dense coalesced loads and
 // store of its own colour, the other colour through L1/L2, no shared memory,
-// Z halos as the other colour's planes, global parity from z0. Out-of-place,
+// Z halos as the other colour's planes (null: replicas of the slab's own
+// faces, nothing copied), global parity from z0. Out-of-place,
 // for the caller's early stop and residuals; in place would be legal and is
 // left to the change that makes the kernel fast.
 
@@ -74,12 +75,16 @@ __global__ void __launch_bounds__(kThreads) sor_halfsweep_gc_packed_kernel(
   auto add_at = [&](long long q) {
     add(ps_o[q], du_o[q], du_o[N + q], du_o[2 * N + q]);
   };
+  // Beyond the slab's Z faces: the halo planes, or, when they are null, the
+  // other colour's own face plane at the same index (replication).
   if (zg < dg - 1) {
     if (z + 1 < D) add_at(p + HW);
+    else if (duo_hi == nullptr) add_at(p);
     else add(pso_hi[hp], duo_hi[hp], duo_hi[HW + hp], duo_hi[2 * HW + hp]);
   }
   if (zg > 0) {
     if (z > 0) add_at(p - HW);
+    else if (duo_lo == nullptr) add_at(p);
     else add(pso_lo[hp], duo_lo[hp], duo_lo[HW + hp], duo_lo[2 * HW + hp]);
   }
   if (y < H - 1) add_at(p + WP);
@@ -113,6 +118,10 @@ extern "C" int tf3d_sor_halfsweep_gc_packed(
     void* stream) {
   const long long n = (long long)D * H * WP;
   if (n == 0) return 0;
+  // The four planes are given together or all null.
+  const int given = (duo_lo != nullptr) + (duo_hi != nullptr) +
+                    (pso_lo != nullptr) + (pso_hi != nullptr);
+  if (given != 0 && given != 4) return (int)cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
   const cudaStream_t s = (cudaStream_t)stream;
   if (terms_bf16) {

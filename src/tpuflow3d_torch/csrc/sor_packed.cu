@@ -22,7 +22,9 @@
 // for every element: each is an active voxel, there is no parity select and
 // nothing is copied. A neighbour across the local Z face comes from the
 // OTHER colour's halo planes (duo_lo/duo_hi, pso_lo/pso_hi), so a Z-sharded
-// caller can pass its neighbours' planes; z0 is the global z of plane 0 and
+// caller can pass its neighbours' planes; null planes stand for replicas of
+// the slab's own faces (the other colour's plane 0 or D-1), so a caller on
+// one device copies none; z0 is the global z of plane 0 and
 // sets both the faces and the row offset (global parity, not slab-local).
 //
 // What bounds it on the card: device-memory bytes. Per voxel of the full
@@ -86,12 +88,16 @@ __global__ void __launch_bounds__(kThreads) sor_halfsweep_packed_kernel(
   auto add_at = [&](long long q) {
     add(ps_o[q], du_o[q], du_o[N + q], du_o[2 * N + q]);
   };
+  // Beyond the slab's Z faces: the halo planes, or, when they are null, the
+  // other colour's own face plane at the same index (replication).
   if (zg < dg - 1) {
     if (z + 1 < D) add_at(p + HW);
+    else if (duo_hi == nullptr) add_at(p);
     else add(pso_hi[hp], duo_hi[hp], duo_hi[HW + hp], duo_hi[2 * HW + hp]);
   }
   if (zg > 0) {
     if (z > 0) add_at(p - HW);
+    else if (duo_lo == nullptr) add_at(p);
     else add(pso_lo[hp], duo_lo[hp], duo_lo[HW + hp], duo_lo[2 * HW + hp]);
   }
   if (y < H - 1) add_at(p + WP);
@@ -128,6 +134,10 @@ extern "C" int tf3d_sor_halfsweep_packed(
     int terms_bf16, void* stream) {
   const long long n = (long long)D * H * WP;
   if (n == 0) return 0;
+  // The four planes are given together or all null.
+  const int given = (duo_lo != nullptr) + (duo_hi != nullptr) +
+                    (pso_lo != nullptr) + (pso_hi != nullptr);
+  if (given != 0 && given != 4) return (int)cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
   const cudaStream_t s = (cudaStream_t)stream;
   if (terms_bf16) {

@@ -13,6 +13,14 @@
 //   i1w    itself, when the caller passes an output for it (gradient
 //          constancy reads it)
 //
+// Window form (the streamed out-of-core mode): the volume passed is a slab
+// of D planes whose plane 0 is global plane z0 of a volume of dg planes (z0
+// may be negative: margins hanging below the volume). z is then clipped to
+// the true volume in the slab's frame, then to the slab, in the plain
+// version's float operations: clip(clip(z + s_z, -z0, dg-1-z0), 0, D-1).
+// With z0 = 0 and dg = D the outer clip changes nothing, so the one-device
+// call is the window form with the whole volume as its slab.
+//
 // The TPU kernel needs a bounded displacement (a select-interpolate over
 // statically shifted slabs, clamp <= 2); a CUDA gather has no such bound,
 // so this kernel serves any flow. Coordinate maths is float32, as in the
@@ -182,7 +190,8 @@ __global__ void __launch_bounds__(kThreads,
     const float* __restrict__ i1, const float* __restrict__ flow,
     const float* __restrict__ i0, float* __restrict__ g,
     float* __restrict__ it, float* __restrict__ i1w, int D, int H, int W,
-    int zchunk, int box_floats, int vec_rows, int* __restrict__ tiles) {
+    int z0g, int dg, int zchunk, int box_floats, int vec_rows,
+    int* __restrict__ tiles) {
   extern __shared__ float4 s_dyn[];
   float* s_bar = reinterpret_cast<float*>(s_dyn);  // [kRing][kEY][kEX]
   float* s_box = s_bar + kRing * kPlanePts;         // the staged box
@@ -193,6 +202,8 @@ __global__ void __launch_bounds__(kThreads,
   const int bx = blockIdx.x * kTX, by = blockIdx.y * kTY;
   const int z0 = blockIdx.z * zchunk, zend = min(z0 + zchunk, D);
   const int N = D * H * W;
+  // The true volume's Z range in the slab's frame.
+  const float zlo = (float)(-z0g), zhi = (float)(dg - 1 - z0g);
   if (tid < 12) s_red[tid / 6][tid % 6] = tid % 6 < 3 ? INT_MAX : INT_MIN;
   __syncthreads();
 
@@ -216,7 +227,8 @@ __global__ void __launch_bounds__(kThreads,
         const int y = min(max(by + ey - 1, 0), H - 1);
         const int x = min(max(bx + ex - 1, 0), W - 1);
         const int v = (z * H + y) * W + x;
-        cz[i] = fminf(fmaxf((float)z + flow[v], 0.f), (float)(D - 1));
+        cz[i] = fminf(fmaxf(fminf(fmaxf((float)z + flow[v], zlo), zhi), 0.f),
+                      (float)(D - 1));
         cy[i] = fminf(fmaxf((float)y + flow[N + v], 0.f), (float)(H - 1));
         cx[i] = fminf(fmaxf((float)x + flow[2 * N + v], 0.f), (float)(W - 1));
         i0v[i] = i0[v];
@@ -349,8 +361,8 @@ __global__ void __launch_bounds__(kThreads,
 
 template <bool kCubic>
 int launch(const float* i1, const float* flow, const float* i0, float* g,
-           float* it, float* i1w, int D, int H, int W, bool staged,
-           int* tiles, cudaStream_t stream) {
+           float* it, float* i1w, int D, int H, int W, int z0, int dg,
+           bool staged, int* tiles, cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(
       warp_grad_kernel<kCubic>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmemBytes<kCubic>);
@@ -366,7 +378,7 @@ int launch(const float* i1, const float* flow, const float* i0, float* g,
                   (D + zchunk - 1) / zchunk);
   warp_grad_kernel<kCubic><<<grid, dim3(kTX, kTY / kRowsPerThread),
                              kSmemBytes<kCubic>, stream>>>(
-      i1, flow, i0, g, it, i1w, D, H, W, zchunk,
+      i1, flow, i0, g, it, i1w, D, H, W, z0, dg, zchunk,
       staged ? kBoxFloats<kCubic> : 0, vec_rows, tiles);
   return (int)cudaGetLastError();
 }
@@ -374,17 +386,20 @@ int launch(const float* i1, const float* flow, const float* i0, float* g,
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-// i1w may be null (no warped volume wanted); cubic != 0 selects K5.
+// i1w may be null (no warped volume wanted); cubic != 0 selects K5. z0 and
+// dg place the volume as a window of a larger one (see above): 0 and D for
+// the whole volume.
 // staged == 0 sends every slab to the device-memory gathers; tiles, when
 // not null, is a device int[2] to which each slab adds one: [0] staged,
 // [1] gathered from device memory.
 extern "C" int tf3d_warp_grad(const float* i1, const float* flow,
                               const float* i0, float* g, float* it,
-                              float* i1w, int D, int H, int W, int cubic,
-                              int staged, int* tiles, void* stream) {
+                              float* i1w, int D, int H, int W, int z0,
+                              int dg, int cubic, int staged, int* tiles,
+                              void* stream) {
   if ((long long)D * H * W == 0) return 0;
-  return cubic ? launch<true>(i1, flow, i0, g, it, i1w, D, H, W, staged != 0,
-                              tiles, (cudaStream_t)stream)
-               : launch<false>(i1, flow, i0, g, it, i1w, D, H, W,
+  return cubic ? launch<true>(i1, flow, i0, g, it, i1w, D, H, W, z0, dg,
+                              staged != 0, tiles, (cudaStream_t)stream)
+               : launch<false>(i1, flow, i0, g, it, i1w, D, H, W, z0, dg,
                                staged != 0, tiles, (cudaStream_t)stream);
 }

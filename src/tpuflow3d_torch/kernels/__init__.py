@@ -72,9 +72,9 @@ _SIGNATURES = {
                         + [_IP, _P]),
     "tf3d_sor_gc_sweeps": ([_P] * 11 + [_I] * 5 + [_F] * 5 + [_I] * 3
                            + [_IP, _P]),
-    # i1, flow, i0, g, it, i1w (may be null), D, H, W, cubic, staged,
-    # tiles (int[2] on the device, may be null), stream
-    "tf3d_warp_grad": [_P] * 6 + [_I] * 5 + [_P, _P],
+    # i1, flow, i0, g, it, i1w (may be null), D, H, W, z0, dg, cubic,
+    # staged, tiles (int[2] on the device, may be null), stream
+    "tf3d_warp_grad": [_P] * 6 + [_I] * 7 + [_P, _P],
     # du_a, du_o, c_a, g_a, ps_a, ps_o, pd_a, duo_lo, duo_hi, pso_lo, pso_hi,
     # out, D, H, WP, z0, dg, half_alpha, omega, one_minus_omega, color,
     # terms_bf16, stream

@@ -9,9 +9,9 @@ factors per voxel from the stored g, so the precomputed
 remakes ``smt`` where g is stored in bfloat16).
 
 - ``sor_sweeps`` returns the iterate after n full sweeps (red, then black).
-  On one device each sweep is one launch of the fused kernel; a slab with Z
-  neighbours takes two single-colour launches per sweep, its halo planes
-  fetched before each.
+  On a whole volume each sweep is one launch of the fused kernel; a slab
+  that is not the whole volume (a streamed window, a Z shard) takes two
+  single-colour launches per sweep, its halo planes fetched before each.
 - ``sor_halfsweep`` is one colour: the single-colour kernel.
 
 Out-of-place, as the plain version: the result is a new tensor and ``du``
@@ -70,13 +70,16 @@ def launch_flat(name: str, entry: str, du: torch.Tensor, c: torch.Tensor,
     kernels.check_tensor(aux_name, aux,
                          (aux_fields, d, h, w) if aux_fields else vol1, dev)
     planes = ()
-    if ctx.has_z_neighbors:
+    if not ctx.is_whole(d):
+        # A window or a shard: the planes beyond its Z faces (replicas of
+        # its own faces in a window) are read for the voxels of its end
+        # planes that the global face masks keep.
         planes = (*ctx.z_halo_planes(du), *ctx.z_halo_planes(psi_s))
         for pname, x, shape in zip(("du_lo", "du_hi", "ps_lo", "ps_hi"),
                                    planes, ((3, 1, h, w),) * 2
                                    + ((1, h, w),) * 2):
             kernels.check_tensor(pname, x, shape, dev)
-    # On one device no stencil crosses the slab's Z faces: null planes.
+    # On a whole volume no stencil crosses the slab's Z faces: null planes.
     plane_ptrs = [x.data_ptr() for x in planes] or [None] * 4
     buf0 = torch.empty_like(du)
     buf1 = torch.empty_like(du) if n > 1 else None
@@ -124,8 +127,9 @@ def sor_halfsweep(du: torch.Tensor, t: SolveTerms, alpha: float, omega: float,
 def sor_sweeps(du: torch.Tensor, t: SolveTerms, alpha: float, omega: float,
                n: int, ctx: HaloCtx = HaloCtx()) -> torch.Tensor:
     """du (3, D, H, W) after n full red-black sweeps: the CUDA kernels for a
-    CUDA tensor (one fused launch per sweep; with Z neighbours two
-    single-colour launches), the plain version for a CPU tensor."""
+    CUDA tensor (one fused launch per sweep; on a slab that is not the
+    whole volume two single-colour launches), the plain version for a CPU
+    tensor."""
     if n < 0:
         raise ValueError(f"sor_sweeps: n = {n}")
     if du.device.type == "cpu":
@@ -133,7 +137,7 @@ def sor_sweeps(du: torch.Tensor, t: SolveTerms, alpha: float, omega: float,
     require_cuda("sor_sweeps", du)
     if n == 0:
         return du
-    if not ctx.has_z_neighbors:
+    if ctx.is_whole(du.shape[-3]):
         return _launch(du, t, alpha, omega, RED_THEN_BLACK, n, ctx)
     for _ in range(n):
         for color in (RED, BLACK):

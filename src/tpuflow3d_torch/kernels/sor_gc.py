@@ -11,8 +11,9 @@ precomputed weights ``t.w`` (made with the same alphas).
 
 - ``sor_gc_sweeps`` returns the iterate after n full sweeps: on one device
   one fused launch per sweep, or, for a grid of at most 4096 voxels (the
-  coarse multigrid levels), all n sweeps in one launch of one block; with Z
-  neighbours two single-colour launches per sweep.
+  coarse multigrid levels), all n sweeps in one launch of one block; on a
+  slab that is not the whole volume two single-colour launches per sweep
+  (never the one-block form).
 - ``sor_halfsweep_gc`` is one colour.
 
 Out-of-place, as the plain version: the result is a new tensor.
@@ -60,9 +61,9 @@ def sor_gc_sweeps(du: torch.Tensor, t: SolveTerms, axis_alpha: tuple,
                   ctx: HaloCtx = HaloCtx()) -> torch.Tensor:
     """du (3, D, H, W) after n full red-black sweeps on (c, ainv, psi_s):
     the CUDA kernels for a CUDA tensor (one fused launch per sweep, or one
-    launch of one block for all n on a grid of at most 4096 voxels; with Z
-    neighbours two single-colour launches per sweep), the plain version for
-    a CPU tensor."""
+    launch of one block for all n on a grid of at most 4096 voxels; on a
+    slab that is not the whole volume two single-colour launches per
+    sweep), the plain version for a CPU tensor."""
     if n < 0:
         raise ValueError(f"sor_gc_sweeps: n = {n}")
     if du.device.type == "cpu":
@@ -70,7 +71,7 @@ def sor_gc_sweeps(du: torch.Tensor, t: SolveTerms, axis_alpha: tuple,
     require_cuda("sor_gc_sweeps", du)
     if n == 0:
         return du
-    if not ctx.has_z_neighbors:
+    if ctx.is_whole(du.shape[-3]):
         return _launch(du, t, axis_alpha, omega, RED_THEN_BLACK, n, ctx)
     for _ in range(n):
         for color in (RED, BLACK):

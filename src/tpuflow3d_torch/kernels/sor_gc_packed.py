@@ -19,7 +19,8 @@ import numpy as np
 import torch
 
 from tpuflow3d_torch import kernels
-from tpuflow3d_torch.kernels.sor_packed import check_packed, packed_rhs
+from tpuflow3d_torch.kernels.sor_packed import (check_packed, packed_rhs,
+                                                plane_ptr)
 
 
 def sor_halfsweep_gc_packed_plain(du_a, du_o, c_a, ainv_a, ps_a, ps_o,
@@ -46,10 +47,11 @@ def sor_halfsweep_gc_packed(du_a, du_o, c_a, ainv_a, ps_a, ps_o,
     """One half-sweep updating the packed ``color`` arrays of the general
     SPD system. du_a, du_o, c_a (3, D, H, WP); ainv_a (6, D, H, WP)
     float32; ps_a, ps_o (D, H, WP); duo_lo/duo_hi (3, 1, H, WP) and
-    pso_lo/pso_hi (1, H, WP) are the OTHER colour's Z halo planes; z0 is
-    the global z of plane 0 and dg the global Z extent. c_a may be
-    bfloat16. Returns the updated active-colour array: the CUDA kernel for
-    CUDA tensors, the plain version for CPU tensors."""
+    pso_lo/pso_hi (1, H, WP) are the OTHER colour's Z halo planes, or all
+    four None for replicas of the slab's own faces; z0 is the global z of
+    plane 0 and dg the global Z extent. c_a may be bfloat16. Returns the
+    updated active-colour array: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors."""
     if du_a.device.type == "cpu":
         return sor_halfsweep_gc_packed_plain(
             du_a, du_o, c_a, ainv_a, ps_a, ps_o, duo_lo, duo_hi, pso_lo,
@@ -71,8 +73,8 @@ def sor_halfsweep_gc_packed(du_a, du_o, c_a, ainv_a, ps_a, ps_o,
             "sor_gc_packed", lib.tf3d_sor_halfsweep_gc_packed,
             du_a.data_ptr(), du_o.data_ptr(), c_a.data_ptr(),
             ainv_a.data_ptr(), ps_a.data_ptr(), ps_o.data_ptr(),
-            duo_lo.data_ptr(), duo_hi.data_ptr(), pso_lo.data_ptr(),
-            pso_hi.data_ptr(), out.data_ptr(), d, h, wp, int(z0), int(dg),
+            plane_ptr(duo_lo), plane_ptr(duo_hi), plane_ptr(pso_lo),
+            plane_ptr(pso_hi), out.data_ptr(), d, h, wp, int(z0), int(dg),
             half_alpha, omega, 1.0 - omega, int(color),
             int(td == torch.bfloat16), kernels.stream_handle(dev))
     return out

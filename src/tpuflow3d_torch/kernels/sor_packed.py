@@ -62,14 +62,17 @@ def unpack_colors(x0: torch.Tensor, x1: torch.Tensor,
     return torch.stack([even, odd], dim=-1).reshape(*x0.shape[:-1], 2 * wp)
 
 
-def _neighbors6_packed(o: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+def _neighbors6_packed(o: torch.Tensor, lo, hi,
                        off: torch.Tensor) -> list[torch.Tensor]:
     """Values at the 6 neighbours (z+, z-, y+, y-, x+, x-) of each active
     element, read from the other colour's array ``o`` (..., D, H, WP) and
-    its Z halo planes (..., 1, H, WP). z and y neighbours keep the packed
-    index; x+ is index i+1 where the row offset is 1, else i; x- is i-1
-    where it is 0, else i. Edges replicate (the face masks zero them)."""
+    its Z halo planes (..., 1, H, WP; None for a replica of o's own face
+    plane). z and y neighbours keep the packed index; x+ is index i+1 where
+    the row offset is 1, else i; x- is i-1 where it is 0, else i. Edges
+    replicate (the face masks zero them)."""
     d = o.shape[-3]
+    lo = o.narrow(-3, 0, 1) if lo is None else lo
+    hi = o.narrow(-3, d - 1, 1) if hi is None else hi
     xl = torch.cat([o[..., 1:], o[..., -1:]], dim=-1)    # index i+1
     xr = torch.cat([o[..., :1], o[..., :-1]], dim=-1)    # index i-1
     return [
@@ -126,9 +129,14 @@ def sor_halfsweep_packed_plain(du_a, du_o, c_a, g_a, ps_a, ps_o, pd_a,
 
 def check_packed(du_a, du_o, ps_a, ps_o, duo_lo, duo_hi, pso_lo, pso_hi):
     """Raise unless the float32 arguments that K4 and K7 share have their
-    packed shapes on du_a's device; returns (d, h, wp)."""
+    packed shapes on du_a's device, and the four halo planes are all given
+    or all None; returns (d, h, wp)."""
     _, d, h, wp = du_a.shape
     dev = du_a.device
+    planes = (duo_lo, duo_hi, pso_lo, pso_hi)
+    n_none = sum(x is None for x in planes)
+    if n_none not in (0, 4):
+        raise ValueError("the halo planes must all be given or all be None")
     for name, x, shape in (("du_a", du_a, (3, d, h, wp)),
                            ("du_o", du_o, (3, d, h, wp)),
                            ("ps_a", ps_a, (d, h, wp)),
@@ -137,8 +145,15 @@ def check_packed(du_a, du_o, ps_a, ps_o, duo_lo, duo_hi, pso_lo, pso_hi):
                            ("duo_hi", duo_hi, (3, 1, h, wp)),
                            ("pso_lo", pso_lo, (1, h, wp)),
                            ("pso_hi", pso_hi, (1, h, wp))):
-        kernels.check_tensor(name, x, shape, dev)
+        if x is not None:
+            kernels.check_tensor(name, x, shape, dev)
     return d, h, wp
+
+
+def plane_ptr(x):
+    """A halo plane's device pointer, or null for None (a replica of the
+    slab's own face, which the kernel reads in place)."""
+    return None if x is None else x.data_ptr()
 
 
 def sor_halfsweep_packed(du_a, du_o, c_a, g_a, ps_a, ps_o, pd_a,
@@ -148,8 +163,10 @@ def sor_halfsweep_packed(du_a, du_o, c_a, g_a, ps_a, ps_o, pd_a,
     """One half-sweep updating the packed ``color`` arrays. du_a, du_o, c_a,
     g_a (3, D, H, WP); ps_a, ps_o, pd_a (D, H, WP); duo_lo/duo_hi (3, 1, H,
     WP) and pso_lo/pso_hi (1, H, WP) are the OTHER colour's Z halo planes
-    (``HaloCtx.z_halo_planes`` of the packed arrays); z0 is the global z of
-    plane 0 and dg the global Z extent. c_a and g_a may be bfloat16.
+    (``HaloCtx.z_halo_planes`` of the packed arrays), or all four None for
+    replicas of the slab's own faces (nothing copied; what a whole volume
+    on one device passes); z0 is the global z of plane 0 and dg the global
+    Z extent. c_a and g_a may be bfloat16.
     Returns the updated active-colour array: the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors."""
     if du_a.device.type == "cpu":
@@ -174,8 +191,8 @@ def sor_halfsweep_packed(du_a, du_o, c_a, g_a, ps_a, ps_o, pd_a,
             "sor_packed", lib.tf3d_sor_halfsweep_packed,
             du_a.data_ptr(), du_o.data_ptr(), c_a.data_ptr(), g_a.data_ptr(),
             ps_a.data_ptr(), ps_o.data_ptr(), pd_a.data_ptr(),
-            duo_lo.data_ptr(), duo_hi.data_ptr(), pso_lo.data_ptr(),
-            pso_hi.data_ptr(), out.data_ptr(), d, h, wp, int(z0), int(dg),
+            plane_ptr(duo_lo), plane_ptr(duo_hi), plane_ptr(pso_lo),
+            plane_ptr(pso_hi), out.data_ptr(), d, h, wp, int(z0), int(dg),
             half_alpha, omega, 1.0 - omega, int(color),
             int(td == torch.bfloat16), kernels.stream_handle(dev))
     return out

@@ -8,7 +8,9 @@ budget). With ``emit_warped`` it also returns the warped volume, which
 the gradient-constancy terms read. The plain version, run for CPU
 tensors, is ``warp.warp_volume`` followed by ``derivatives.derivatives``.
 The two interpolations count their launches apart (``warp_grad`` and
-``warp_grad_tricubic``).
+``warp_grad_tricubic``). Under a window context (a streamed slab of a
+larger volume) the kernel clips z as the plain ``warp_volume`` does there,
+from the slab's global z0 and the volume's depth.
 
 The tricubic kernel gathers each slab's taps from a box of I1 staged in
 shared memory where that box fits, else from device memory; both give the
@@ -69,7 +71,8 @@ def warp_grad(i1: torch.Tensor, flow: torch.Tensor, i0: torch.Tensor,
                        i1.data_ptr(), flow.data_ptr(), i0.data_ptr(),
                        g.data_ptr(), it.data_ptr(),
                        i1w.data_ptr() if emit_warped else None, d, h, w,
-                       int(cubic), int(staged),
+                       int(ctx.z0(d)), ctx.d_global(d), int(cubic),
+                       int(staged),
                        None if tile_counts is None else tile_counts.data_ptr(),
                        kernels.stream_handle(dev))
     return (g, it, i1w) if emit_warped else (g, it)

@@ -22,8 +22,11 @@ trilinear prolongation -> mg_post sweeps, at the damped ``mg_omega``.
   most 4096 voxels; the plain version is ``solver.sor_halfsweep`` on the
   level terms.
 
-The streamed out-of-core pieces (``assemble_fine_system``,
-``fine_residual``) come with the piecewise mode (ROADMAP queue 1, item 11).
+The streamed out-of-core mode (``piecewise._stream_mg_solve``) stores only
+the fine system's constituents (c, psi_s, d6) on the host and rebuilds the
+weights and the inverse per slab visit (``assemble_fine_system``,
+``fine_residual``); its coarse chain starts from restricted inputs
+(``build_coarse_chain(..., inputs_at_first=True)``).
 """
 
 from __future__ import annotations
@@ -141,15 +144,19 @@ def build_mg_levels(t: SolveTerms, p: FlowParams,
 
 
 def build_coarse_chain(psi_s, d6, shapes, gshape_fine, p: FlowParams,
-                       ctx: HaloCtx) -> list[MGLevel]:
+                       ctx: HaloCtx,
+                       inputs_at_first: bool = False) -> list[MGLevel]:
     """Levels for the coarse ``shapes``: psi_s and the six data-matrix
     entries restricted level by level (resize3, the Galerkin quadratic
     form for d6), the weights rebuilt with the cumulative per-axis 1/h^2
-    scale against the fine global shape."""
+    scale against the fine global shape. ``inputs_at_first``: psi_s and d6
+    are already at shapes[0] (the streamed mode restricts them while it
+    streams), so the first level takes them as they are."""
     levels = []
-    for shp in shapes:
-        d6 = resize3(d6, shp, ctx)
-        psi_s = resize3(psi_s, shp, ctx)
+    for i, shp in enumerate(shapes):
+        if i > 0 or not inputs_at_first:
+            d6 = resize3(d6, shp, ctx)
+            psi_s = resize3(psi_s, shp, ctx)
         axis_scale = tuple((shp[a] / gshape_fine[a]) ** 2 for a in range(3))
         w, sw = _weights(psi_s, axis_scale, p.alpha, ctx)
         levels.append(_assemble_level(
@@ -157,6 +164,30 @@ def build_coarse_chain(psi_s, d6, shapes, gshape_fine, p: FlowParams,
                                         psi_s.device),
             psi_s, tuple(p.alpha * s for s in axis_scale)))
     return levels
+
+
+def assemble_fine_system(c, psi_s, d6, p: FlowParams, ctx: HaloCtx):
+    """(SolveTerms of the general system: c, w, psi_s, ainv; and sw) for
+    the fine system rebuilt from its streamed constituents (c, psi_s, d6),
+    with the arithmetic of ``build_mg_levels``' level 0."""
+    w, sw = _weights(psi_s, (1.0, 1.0, 1.0), p.alpha, ctx)
+    ainv = _sym3_inverse(sw + d6[0], d6[1], d6[2],
+                         sw + d6[3], d6[4], sw + d6[5])
+    t = SolveTerms(c=c, g=None, w=w, sw_inv=None, smt=None, psi_s=psi_s,
+                   ainv=ainv)
+    return t, sw
+
+
+def fine_residual(du, c, psi_s, d6, p: FlowParams, ctx: HaloCtx):
+    """``mg_residual`` on the fine system from its streamed constituents
+    (the streamed residual phase), the weights and their sum rebuilt from
+    psi_s as the reference's residual does (it takes the sum as an
+    argument; here one ``_weights`` call gives both)."""
+    w, sw = _weights(psi_s, (1.0, 1.0, 1.0), p.alpha, ctx)
+    t = SolveTerms(c=c, g=None, w=w, sw_inv=None, smt=None, psi_s=psi_s)
+    lvl = MGLevel(terms=t, d6=d6, sw=sw, parity=None, shape_global=None,
+                  psi_s=psi_s, axis_alpha=(p.alpha,) * 3)
+    return mg_residual(du, lvl, c, ctx)
 
 
 def _smooth(du, lvl: MGLevel, rhs, p: FlowParams, n: int, ctx: HaloCtx):

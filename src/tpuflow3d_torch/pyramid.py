@@ -48,14 +48,22 @@ def smooth(x: torch.Tensor, sigma: float, ctx: HaloCtx = HaloCtx()) -> torch.Ten
     return x
 
 
+def _axis_coords(out_len_local: int, scale: float, z0_out: int,
+                 dtype=torch.float32, device=None) -> torch.Tensor:
+    """Half-pixel source coordinates for a local output window: output index
+    i (local) at global offset z0_out samples global input coordinate
+    (i + z0_out + 0.5) * scale - 0.5, scale = in_global/out_global rounded
+    to ``dtype``."""
+    i = torch.arange(out_len_local, dtype=dtype, device=device)
+    return (i + z0_out + 0.5) * float(np.float32(scale)) - 0.5
+
+
 def resize_axis_local(x: torch.Tensor, out_len: int, axis: int) -> torch.Tensor:
     """Linear resize along one axis (half-pixel coordinates, clipped)."""
     in_len = x.shape[axis]
     if in_len == out_len:
         return x
-    scale = float(np.float32(in_len / out_len))
-    c = (torch.arange(out_len, dtype=x.dtype, device=x.device) + 0.5) \
-        * scale - 0.5
+    c = _axis_coords(out_len, in_len / out_len, 0, x.dtype, x.device)
     c = c.clamp(0.0, in_len - 1)
     fl = torch.floor(c)
     i0 = fl.long()
@@ -65,6 +73,30 @@ def resize_axis_local(x: torch.Tensor, out_len: int, axis: int) -> torch.Tensor:
     b = x.index_select(axis, i1)
     fshape = [1] * x.ndim
     fshape[axis] = out_len
+    f = f.reshape(fshape)
+    return a * (1.0 - f) + b * f
+
+
+def resize_z_window(xp: torch.Tensor, out_len: int, z0_out: int, z0_in: int,
+                    nh: int, scale: float, in_global: int) -> torch.Tensor:
+    """Windowed Z resize: xp is an input window padded by nh planes whose
+    plane 0 is global input plane (z0_in - nh); makes ``out_len`` output
+    planes starting at global output plane z0_out. The streamed pyramid
+    (``piecewise._stream_resample``) resizes its slabs with it, with the
+    arithmetic of the in-core ``resize_axis_local`` along Z. Indices are
+    clipped into the window, so an off-by-one reads an edge plane instead
+    of failing silently elsewhere."""
+    c = _axis_coords(out_len, scale, z0_out, xp.dtype, xp.device)
+    c = c.clamp(0.0, in_global - 1)
+    fl = torch.floor(c)
+    i0g = fl.long()
+    i1g = (i0g + 1).clamp_max(in_global - 1)
+    f = c - fl
+    n = xp.shape[Z_AXIS]
+    a = xp.index_select(Z_AXIS, (i0g - z0_in + nh).clamp(0, n - 1))
+    b = xp.index_select(Z_AXIS, (i1g - z0_in + nh).clamp(0, n - 1))
+    fshape = [1] * xp.ndim
+    fshape[Z_AXIS] = out_len
     f = f.reshape(fshape)
     return a * (1.0 - f) + b * f
 

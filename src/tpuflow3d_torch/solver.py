@@ -133,6 +133,52 @@ def _sym3_inverse(m00, m01, m02, m11, m12, m22) -> torch.Tensor:
     return torch.stack([c00, c01, c02, c11, c12, c22]) * det_inv
 
 
+def _nb(src, src_zp, axis, delta):
+    """src's neighbour along (axis, delta), replicate edges; src_zp is src
+    padded by one plane along Z (through the context)."""
+    if axis == Z_AXIS:
+        return neighbor_slices(src_zp, 1, Z_AXIS, delta)
+    return neighbor_slices(replicate_pad(src, 1, axis), 1, axis, delta)
+
+
+def _weight_block(psi_s: torch.Tensor, alpha: float, ctx: HaloCtx):
+    """Directional weights w_pq = alpha*(psi_s[p]+psi_s[q])/2, zero across
+    global faces, in the order z+, z-, y+, y-, x+, x-, and their sum sw
+    accumulated in that order (the order sets the rounding)."""
+    shape = tuple(psi_s.shape)
+    masks = _face_masks(shape, ctx, psi_s.dtype, psi_s.device)
+    half_alpha = float(np.float32(alpha)) * 0.5
+    psi_zp = ctx.zpad(psi_s, 1)
+    sw = torch.zeros(shape, dtype=psi_s.dtype, device=psi_s.device)
+    w_dirs = []
+    for mask, (axis, delta) in zip(masks, _DIRECTIONS):
+        wd = half_alpha * (psi_s + _nb(psi_s, psi_zp, axis, delta)) * mask
+        sw = sw + wd
+        w_dirs.append(wd)
+    return tuple(w_dirs), sw
+
+
+def sweep_terms(c: torch.Tensor, g, psi_s: torch.Tensor, aux: torch.Tensor,
+                p: FlowParams, ctx: HaloCtx = HaloCtx()) -> SolveTerms:
+    """The SolveTerms of a sweep rebuilt from the compact constants that
+    the kernels read: (c, g, psi_s, psi_d) of the rank-1 system (aux =
+    psi_d), or (c, psi_s, ainv) of the general one (g None, aux = ainv).
+    The weights, sw_inv and smt are made with ``compute_terms``' arithmetic,
+    so they are its bits wherever psi_s and its neighbours are; c and g
+    are stored as ``p.terms_dtype`` (g float32 and unrounded on entry, as
+    ``compute_terms`` takes it). The streamed mode keeps only these on the
+    host and rebuilds the rest per slab."""
+    w, sw = _weight_block(psi_s, p.alpha, ctx)
+    store = getattr(torch, p.terms_dtype)
+    if g is None:
+        return SolveTerms(c=c.to(store), g=None, w=w, sw_inv=None, smt=None,
+                          psi_s=psi_s, ainv=aux)
+    sw_inv = 1.0 / sw
+    smt = aux * sw_inv / (sw + aux * (g * g).sum(0))
+    return SolveTerms(c=c.to(store), g=g.to(store), w=w, sw_inv=sw_inv,
+                      smt=smt, psi_s=psi_s, psi_d=aux)
+
+
 def compute_terms(g: torch.Tensor, it: torch.Tensor, flow: torch.Tensor,
                   du: torch.Tensor, p: FlowParams,
                   ctx: HaloCtx = HaloCtx(), gc=None) -> SolveTerms:
@@ -166,24 +212,11 @@ def compute_terms(g: torch.Tensor, it: torch.Tensor, flow: torch.Tensor,
     # w_pq*(u[q]-u[p]) (smoothness acts on the total flow u+du; the du[q]
     # part is added fresh each sweep). One direction at a time, in the
     # order z+, z-, y+, y-, x+, x-: the order sets the rounding.
-    masks = _face_masks(shape, ctx, dtype, g.device)
-    half_alpha = float(np.float32(p.alpha)) * 0.5
-    sw = torch.zeros(shape, dtype=dtype, device=g.device)
+    w_dirs, sw = _weight_block(psi_s, p.alpha, ctx)
     nbu = torch.zeros_like(flow)
     flow_zp = ctx.zpad(flow, 1)
-    psi_zp = ctx.zpad(psi_s, 1)
-
-    def nb(src, src_zp, axis, delta):
-        if axis == Z_AXIS:
-            return neighbor_slices(src_zp, 1, Z_AXIS, delta)
-        return neighbor_slices(replicate_pad(src, 1, axis), 1, axis, delta)
-
-    w_dirs = []
-    for mask, (axis, delta) in zip(masks, _DIRECTIONS):
-        wd = half_alpha * (psi_s + nb(psi_s, psi_zp, axis, delta)) * mask
-        sw = sw + wd
-        nbu = nbu + wd[None] * (nb(flow, flow_zp, axis, delta) - flow)
-        w_dirs.append(wd)
+    for wd, (axis, delta) in zip(w_dirs, _DIRECTIONS):
+        nbu = nbu + wd[None] * (_nb(flow, flow_zp, axis, delta) - flow)
     c = -(psi_d * it)[None] * g + nbu
     sw_inv = 1.0 / sw
     q = psi_d * (g * g).sum(0)
@@ -210,7 +243,7 @@ def compute_terms(g: torch.Tensor, it: torch.Tensor, flow: torch.Tensor,
     # Storage-only downcast of the sweep constants c and g, at the end as
     # in the reference: smt, ainv and d6 are those of the unrounded g.
     store = getattr(torch, p.terms_dtype)
-    return SolveTerms(c=c.to(store), g=g.to(store), w=tuple(w_dirs),
+    return SolveTerms(c=c.to(store), g=g.to(store), w=w_dirs,
                       sw_inv=sw_inv, smt=smt, psi_s=psi_s, psi_d=psi_d,
                       ainv=ainv, d6=d6)
 
@@ -266,7 +299,8 @@ def _packed_sweeper(du: torch.Tensor, t: SolveTerms, p: FlowParams,
     """The colour-packed form of one inner iteration's sweeps: packs du and
     the sweep constants ((c, ainv, psi_s) with gamma > 0, else (c, g,
     psi_s, psi_d)) once, an exact permutation amortized over p.sweeps
-    sweeps, and fetches the psi_s halos once. Returns the packed (red,
+    sweeps, and fetches the psi_s halos once, or none on a whole volume
+    (the kernels replicate its faces in place). Returns the packed (red,
     black) pair of du and the function that runs one red+black sweep on
     such a pair through K4 or K7 (their plain versions for CPU tensors)."""
     from tpuflow3d_torch.kernels.sor_packed import pack_color
@@ -285,13 +319,15 @@ def _packed_sweeper(du: torch.Tensor, t: SolveTerms, p: FlowParams,
     ps = [pack_color(t.psi_s, col, z0) for col in (0, 1)]
     tail = [[] if p.gamma > 0.0 else [pack_color(t.psi_d, col, z0)]
             for col in (0, 1)]
-    ps_halos = [ctx.z_halo_planes(x) for x in ps]
+    whole = ctx.is_whole(d)
+    ps_halos = [(None, None) if whole else ctx.z_halo_planes(x) for x in ps]
 
     def one_sweep(pair):
         pair = list(pair)
         for col in (0, 1):
             other = 1 - col
-            lo, hi = ctx.z_halo_planes(pair[other])
+            lo, hi = ((None, None) if whole
+                      else ctx.z_halo_planes(pair[other]))
             pair[col] = halfsweep(
                 pair[col], pair[other], *head[col], ps[col], ps[other],
                 *tail[col], lo, hi, *ps_halos[other], z0, p.alpha, p.omega,

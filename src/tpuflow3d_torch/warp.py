@@ -111,9 +111,15 @@ def _tricubic_gather(vol: torch.Tensor, cz, cy, cx) -> torch.Tensor:
 def warp_volume(i1: torch.Tensor, flow: torch.Tensor, ctx: HaloCtx = HaloCtx(),
                 interp: str = "trilinear") -> torch.Tensor:
     """Backward-warp the moving volume i1 (D, H, W) by ``flow`` (3, D, H, W:
-    z, y, x displacements in voxels of the current level). On one device
-    no displacement bound is needed (the sharded reference needs
-    ``max_disp`` to size its Z halo, see ``warp_halo``)."""
+    z, y, x displacements in voxels of the current level).
+
+    Under a window context (a streamed slab that already carries its
+    margin planes) z is clipped to the true volume in the slab's frame,
+    then to the slab itself: clip(clip(z + s_z, -z0, dg-1-z0), 0, D-1).
+    Voxels near the slab's faces may then sample a margin plane's replica;
+    the streaming loop crops them. One device and the window need no
+    displacement bound (the sharded reference needs ``max_disp`` to size
+    its Z halo, see ``warp_halo``)."""
     if interp not in ("trilinear", "tricubic"):
         raise ValueError(f"interp must be 'trilinear' or 'tricubic', got "
                          f"{interp!r}")
@@ -123,7 +129,12 @@ def warp_volume(i1: torch.Tensor, flow: torch.Tensor, ctx: HaloCtx = HaloCtx(),
     zi = torch.arange(d, **kw).reshape(d, 1, 1)
     yi = torch.arange(h, **kw).reshape(1, h, 1)
     xi = torch.arange(w, **kw).reshape(1, 1, w)
-    cz = (zi + flow[0]).clamp(0.0, d_global - 1)
+    if ctx.is_window:
+        z0 = ctx.z0(d)
+        cz = (zi + flow[0]).clamp(float(-z0), float(d_global - 1 - z0)) \
+            .clamp(0.0, d - 1)
+    else:
+        cz = (zi + flow[0]).clamp(0.0, d_global - 1)
     cy = (yi + flow[1]).clamp(0.0, h - 1)
     cx = (xi + flow[2]).clamp(0.0, w - 1)
     gather = _tricubic_gather if interp == "tricubic" else _trilinear_gather

@@ -5,7 +5,12 @@ levels, K4 and K7 the colour-packed half-sweeps, and the bfloat16-terms
 instantiations of the four sweep kernels) against their plain PyTorch
 versions, on the card, and
 compute_flow through the kernels against plain on the ladder, ``accurate``,
-gamma, packed, bfloat16 and order-4 paths.
+gamma, packed, bfloat16 and order-4 paths. The streamed mode's window forms:
+K2/K5 and single-colour K1/K6 on window slabs (z0 below, at and inside the
+volume) bitwise against their plain window versions, K2/K5 on a window that
+is the whole volume bitwise the one-device launch, K4/K7 with null halo
+planes bitwise the call with copied ones, and compute_flow_piecewise
+through the kernels bitwise its plain run.
 
 Marked ``cuda``: every test skips when torch.cuda.is_available() is false.
 The machine with the card has no JAX, and tests/conftest.py imports it,
@@ -53,19 +58,20 @@ def _t(a, dev):
     return torch.as_tensor(np.asarray(a, np.float32), device=dev)
 
 
-def _terms(shape, dev, seed=0, gamma=0.0, terms_dtype="float32"):
+def _terms(shape, dev, seed=0, gamma=0.0, terms_dtype="float32",
+           ctx=HaloCtx()):
     rng = np.random.default_rng(seed)
     i0 = _t(rng.normal(size=shape), dev)
     shift = torch.zeros((3, *shape), device=dev)
     shift[2] = 0.7
     i1 = warp_volume(i0, -shift)
-    g, it = derivatives(i0, i1)
-    gc = grad_constancy_terms(i0, i1, g=g) if gamma > 0 else None
+    g, it = derivatives(i0, i1, ctx)
+    gc = grad_constancy_terms(i0, i1, ctx, g=g) if gamma > 0 else None
     flow = _t(rng.normal(size=(3, *shape)) * 0.1, dev)
     du = _t(rng.normal(size=(3, *shape)) * 0.05, dev)
     return du, compute_terms(g, it, flow, du,
                              FlowParams(alpha=ALPHA, gamma=gamma,
-                                        terms_dtype=terms_dtype), gc=gc)
+                                        terms_dtype=terms_dtype), ctx, gc=gc)
 
 
 @pytest.mark.parametrize("color", [0, 1])
@@ -589,3 +595,149 @@ def test_packed_odd_width_sweeps_flat(dev):
     assert kernels.LAUNCHES["sor_packed"] == 0
     assert torch.equal(got, compute_flow(i0, i1,
                                          p.replace(sweep_layout="flat")))
+
+
+# ---- the window forms (the streamed out-of-core mode) ----
+
+WINDOW_DG = 24                                  # the volume's depth
+WINDOWS = [(-5, 14), (0, 14), (6, 14), (13, 14)]  # (z0, slab planes)
+
+
+def _window_ctx(z0):
+    return HaloCtx(window_z0=z0, window_d_global=WINDOW_DG)
+
+
+@pytest.mark.parametrize("staged", [True, False])
+@pytest.mark.parametrize("emit", [False, True])
+@pytest.mark.parametrize("interp", ["trilinear", "tricubic"])
+@pytest.mark.parametrize("z0,planes", WINDOWS)
+def test_warp_grad_window_bitwise(dev, z0, planes, interp, emit, staged):
+    """K2/K5 in window form (z clipped to the volume in the slab's frame,
+    then to the slab) against the plain window warp + derivatives."""
+    rng = np.random.default_rng(8)
+    shape = (planes, 18, 40)
+    i0, i1 = (_t(rng.normal(size=shape), dev) for _ in range(2))
+    flow = _t(rng.uniform(-3.0, 3.0, (3, *shape)), dev)
+    ctx = _window_ctx(z0)
+    kernels.reset_launches()
+    got = k_warp_grad(i1, flow, i0, ctx, interp=interp, emit_warped=emit,
+                      staged=staged)
+    i1w = warp_volume(i1, flow, ctx, interp=interp)
+    ref = (*derivatives(i0, i1w, ctx), i1w)
+    assert len(got) == (3 if emit else 2)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    name = "warp_grad_tricubic" if interp == "tricubic" else "warp_grad"
+    assert {k: n for k, n in kernels.LAUNCHES.items() if n} == {name: 1}
+
+
+@pytest.mark.parametrize("interp", ["trilinear", "tricubic"])
+def test_warp_grad_window_of_the_whole_volume_is_the_one_device_launch(
+        dev, interp):
+    rng = np.random.default_rng(9)
+    shape = (20, 17, 35)
+    i0, i1 = (_t(rng.normal(size=shape), dev) for _ in range(2))
+    flow = _t(rng.uniform(-6.0, 6.0, (3, *shape)), dev)
+    whole = HaloCtx(window_z0=0, window_d_global=shape[0])
+    a = k_warp_grad(i1, flow, i0, whole, interp=interp, emit_warped=True)
+    b = k_warp_grad(i1, flow, i0, interp=interp, emit_warped=True)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("terms_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("gamma", [0.0, 1.5], ids=["k1", "k6"])
+@pytest.mark.parametrize("z0,planes", WINDOWS)
+def test_single_colour_sweeps_on_windows(dev, z0, planes, gamma,
+                                         terms_dtype):
+    """K1 and K6 on a window slab: one colour per launch with replicate
+    halo planes, bitwise the plain half-sweep under the window context;
+    sor_sweeps then takes two launches per sweep, never the fused or the
+    one-block form."""
+    ctx = _window_ctx(z0)
+    du, t = _terms((planes, 12, 16), dev, gamma=gamma,
+                   terms_dtype=terms_dtype, ctx=ctx)
+    parity = parity_mask(tuple(du.shape[1:]), ctx, dev)
+    half = ((lambda x, c: k_sor_gc(x, t, (ALPHA,) * 3, OMEGA, c, ctx))
+            if gamma > 0.0 else
+            (lambda x, c: k_sor(x, t, ALPHA, OMEGA, c, ctx)))
+    for color in (0, 1):
+        assert torch.equal(half(du, color),
+                           sor_halfsweep(du, t, OMEGA, parity, color, ctx))
+    kernels.reset_launches()
+    got = (sor_gc_sweeps(du, t, (ALPHA,) * 3, OMEGA, 2, ctx) if gamma > 0.0
+           else sor_sweeps(du, t, ALPHA, OMEGA, 2, ctx))
+    ref = du
+    for _ in range(2):
+        for color in (0, 1):
+            ref = sor_halfsweep(ref, t, OMEGA, parity, color, ctx)
+    assert torch.equal(got, ref)
+    name = "sor_gc" if gamma > 0.0 else "sor_halfsweep"
+    assert {k: n for k, n in kernels.LAUNCHES.items() if n} == {name: 4}
+
+
+@pytest.mark.parametrize("terms_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("gamma", [0.0, 1.5], ids=["k4", "k7"])
+@pytest.mark.parametrize("shape", PACKED_SHAPES)
+def test_packed_null_planes_bitwise(dev, shape, gamma, terms_dtype):
+    """K4 and K7 with null halo planes (what a whole volume passes: the
+    kernel replicates its own faces) against the call with copied planes,
+    and the sweeper of solve_increment copies none on a whole volume."""
+    du, t = _terms(shape, dev, gamma=gamma, terms_dtype=terms_dtype)
+    kern = k7.sor_halfsweep_gc_packed if gamma > 0.0 else \
+        k4.sor_halfsweep_packed
+    for color in (0, 1):
+        args = _packed_args(du, t, color, 0, shape[0], gamma)
+        nulls = args[:-9] + (None,) * 4 + args[-5:]
+        assert torch.equal(kern(*nulls), kern(*args))
+    with pytest.raises(ValueError, match="all be None"):
+        kern(*(args[:-9] + (None, *args[-8:])))
+
+
+def test_packed_sweeper_copies_no_planes_on_one_device(dev, monkeypatch):
+    from tpuflow3d_torch.solver import _packed_sweeper
+    du, t = _terms((6, 8, 8), dev)
+    calls = []
+    monkeypatch.setattr(HaloCtx, "z_halo_planes",
+                        lambda self, x: calls.append(1))
+    state, one_sweep = _packed_sweeper(
+        du, t, FlowParams(alpha=ALPHA, sweep_layout="packed"), HaloCtx())
+    one_sweep(state)
+    torch.cuda.synchronize()
+    assert calls == []
+
+
+# name -> (params, chunk, shape, kernels the streamed path launches)
+_LADDER = dict(levels=2, warps=3, inner_iterations=3, sweeps=20,
+               flow_clamp=3.0)
+STREAM_PATHS = {
+    "ladder": (FlowParams(**_LADDER), 8, (32, 32, 32),
+               {"sor_halfsweep", "warp_grad", "median3"}),
+    "fused": (FlowParams(**{**_LADDER, "inner_iterations": 1, "warps": 5}), 8,
+              (32, 32, 32), {"sor_halfsweep", "warp_grad", "median3"}),
+    "gamma_fused": (FlowParams(**{**_LADDER, "inner_iterations": 1,
+                                  "gamma": 1.0}), 8, (30, 32, 32),
+                    {"sor_gc", "warp_grad", "median3"}),
+    "accurate": (PRESETS["accurate"].replace(levels=2, warps=3), 8,
+                 (32, 32, 32), {"warp_grad_tricubic", "sor_gc", "median3"}),
+}
+
+
+@pytest.mark.parametrize("name", list(STREAM_PATHS))
+def test_piecewise_kernels_match_plain_and_launch(dev, name):
+    """compute_flow_piecewise through the kernels against its plain run on
+    the card: bitwise, exactly the path's kernels launched, and the EPE
+    within the JAX package's streamed-vs-in-core gate (0.02) of the
+    in-core flow's."""
+    from tpuflow3d_torch.piecewise import compute_flow_piecewise
+    p, chunk, shape, launched = STREAM_PATHS[name]
+    i0, i1, true = syn.make_pair(shape, syn.translation((1.5, -1.0, 0.75)))
+    kernels.reset_launches()
+    got = compute_flow_piecewise(i0, i1, p, chunk_z=chunk)
+    assert {k for k, n in kernels.LAUNCHES.items() if n > 0} == launched, \
+        kernels.LAUNCHES
+    ref = compute_flow_piecewise(i0, i1, p.replace(backend="plain"),
+                                 chunk_z=chunk, device=dev)
+    np.testing.assert_array_equal(got, ref)
+    mask = syn.gradient_mask(i0, 0.75) & syn.interior_mask(shape, 4)
+    incore = compute_flow(i0, i1, p, device=dev).cpu().numpy()
+    assert abs(syn.epe(got, true, mask) - syn.epe(incore, true, mask)) < 0.02
