@@ -74,6 +74,27 @@
    (``[stream:ladder512]``); ``accurate`` at 256^3 against in-core
    (``[stream:accurate]``). The streamed-vs-in-core gate is the JAX
    package's (max |diff| < 5e-2, mean < 1e-2, |dEPE| < 0.02).
+15. The command line, ``tpuflow3d_torch.cli``, at 256^3 (``[15:cli]``):
+   frames i0, i1, i0 written as uint16 raws with sidecars (the native IO
+   library required); the series with tracking, derived fields, VTK,
+   statistics, fit and timings in this process (exactly K1 1800, K2 30,
+   K3 30; pair 0 bitwise ``compute_flow`` on the widened frames; EPE; the
+   tracks back at their seeds; the VTK flow equal to the raws); the pair
+   through ``python -m tpuflow3d_torch.cli`` as a process (bitwise pair
+   0); auto mode under a 1 GiB budget (``TPUFLOW_DEVICE_BYTES``, and the
+   caching allocator capped at it) for ``ladder256`` and ``accurate``:
+   first the window forms of ``pick_chunk_z``'s chunk (48 and 43, the
+   last chunk ragged) bitwise against plain, then the run, piecewise with
+   that chunk, every form it launched held so, the device peak within
+   the budget, the streamed-vs-in-core gate; ``--apply-flow`` bitwise
+   ``warp_volume`` and no kernel launched; ``--check-consistency``
+   (exactly K1 1800, K2 30, K3 30).
+
+Every in-core run through the kernels (phases 4-10, 12-15) prints its
+device peak (``torch.cuda.max_memory_allocated`` beyond what was allocated
+before it) beside ``utils.memory.incore_peak_bytes``, and every streamed
+run its peak beside ``utils.memory.streamed_peak_bytes`` for its chunk
+(``[mem]``); each fails if the model is below the peak.
 
 Every failure raises, so the exit code is non-zero. The last two lines are
 a JSON summary of the kernels and {"ok": true, "device": {...}}. Imports
@@ -473,46 +494,38 @@ def recording_forms(forms: set):
 
 def window_forms(p, shape, chunk: int) -> list:
     """The slab forms that compute_flow_piecewise (temporal_block, fuse)
-    gives the kernels on a level of global shape ``shape``, as its loops
-    cut them: (kind, planes, the z0 of every launch, detail). kind "warp":
-    detail = emit; "sweep": (omega, system: "rank1", "gc" or "mg");
-    "median": detail = whether the slab is the clamped-global gather."""
-    from tpuflow3d_torch.mgsolver import mg_shapes
-    from tpuflow3d_torch.piecewise import stream_margin
-    dg = shape[0]
-    mw, s2 = stream_margin(p), 2 * p.sweeps
+    gives the kernels on a level of global shape ``shape``, read from its
+    ``piecewise.level_plan``: (kind, planes, the z0 of every launch,
+    detail). kind "warp": detail = emit; "sweep": (omega, system: "rank1",
+    "gc" or "mg"); "median": detail = whether the slab is the fused
+    pass's clamped-global gather."""
+    from tpuflow3d_torch.piecewise import level_plan
     gamma = p.gamma > 0.0
-    n_chunks = -(-dg // chunk)
-    system = "gc" if gamma else "rank1"
-    if p.solver == "sor" and p.inner_iterations == 1:
-        # The fused pass: one slab of chunk + 2S + 2 mw planes per launch.
-        size = chunk + s2 + 2 * mw
-        zs = [k * chunk - chunk - mw for k in range(n_chunks + 1)]
-        forms = [("warp", size, zs, gamma),
-                 ("sweep", size, zs, (p.omega, system))]
-        return forms + ([("median", size, zs, True)] if p.median else [])
-    trapezoid = [(k - 1) * chunk - 1 for k in range(n_chunks + 1)]
-    forms = [("warp", chunk + 2 * mw, [z - mw for z in range(0, dg, chunk)],
-              gamma)]
-    if p.solver == "multigrid":
-        smooths = ((p.mg_pre, p.mg_post) if len(mg_shapes(shape, 1)) > 1
-                   else (p.mg_pre, p.mg_coarse_sweeps))
-        forms += [("sweep", chunk + 2 * n + 2, trapezoid, (p.mg_omega, "mg"))
-                  for n in sorted(set(smooths)) if n > 0]
-    else:
-        forms.append(("sweep", chunk + s2 + 2, trapezoid, (p.omega, system)))
-    if p.median:
-        forms.append(("median", chunk + 2,
-                      [z - 1 for z in range(0, dg, chunk)], False))
+    sweep = (p.omega, "gc" if gamma else "rank1")
+    forms = []
+    for ps in level_plan(p, shape, chunk):
+        at = (ps.planes, ps.z0s)
+        if ps.name == "fused":
+            forms += [("warp", *at, gamma), ("sweep", *at, sweep)]
+            forms += [("median", *at, True)] if p.median else []
+        elif ps.name in ("warp", "terms_gc"):
+            forms.append(("warp", *at, gamma))
+        elif ps.name == "sor":
+            forms.append(("sweep", *at, sweep))
+        elif ps.name == "mg_smooth":
+            forms.append(("sweep", *at, (p.mg_omega, "mg")))
+        elif ps.name == "median":
+            forms.append(("median", *at, False))
     return forms
 
 
 def window_phase(torch, label, p, pyr0, pyr1, summary, checked: set,
-                 all_forms=False) -> None:
-    """The kernels in the forms a streamed path gives them (``window_forms``)
-    on every level of its pyramid (device tensors, fine to coarse), each
-    at its first launch's z0 (margins below the volume), an interior one
-    (96 where the level has one past it) and its last (margins above):
+                 all_forms=False, chunk: int = STREAM_CHUNK) -> None:
+    """The kernels in the forms a streamed path with Z-chunks of ``chunk``
+    gives them (``window_forms``) on every level of its pyramid (device
+    tensors, fine to coarse), each at its first launch's z0 (margins below
+    the volume), an interior one (96 where the level has one past it) and
+    its last (margins above; a ragged last chunk's slab):
     K2/K5 on the warp slab and K1/K6 on the trapezoid or fused slab, under
     the window context, K3 on the median slab with null planes (the fused
     pass's clamped-global gather). The sweep terms are made by the path's
@@ -575,8 +588,7 @@ def window_phase(torch, label, p, pyr0, pyr1, summary, checked: set,
             idx = torch.arange(z0, z0 + n, device=dev).clamp(0, dg - 1)
             return x.index_select(-3, idx).contiguous()
 
-        for kind, planes, zs, detail in window_forms(p, v0.shape,
-                                                     STREAM_CHUNK):
+        for kind, planes, zs, detail in window_forms(p, v0.shape, chunk):
             mid = (96 if zs[0] < 96 < zs[-1] else zs[len(zs) // 2])
             n = planes * h * w
             for z0 in dict.fromkeys((zs[0], mid, zs[-1])):
@@ -748,6 +760,52 @@ def device_epe(torch, flow, shift, mask) -> float:
     return float(err[mask].mean())
 
 
+def device_peak(torch, dev, run):
+    """Run ``run``; return (its result, the device bytes allocated at its
+    peak beyond those allocated before it, those bytes)."""
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = run()
+    torch.cuda.synchronize(dev)
+    return out, torch.cuda.max_memory_allocated(dev) - base, base
+
+
+def check_incore_model(label, shape, p, peak, base, summary) -> None:
+    """Print an in-core run's device peak beside utils.memory's model; raise
+    if the model is below it (the auto choice would then send a volume
+    in-core that runs out of memory)."""
+    from tpuflow3d_torch.utils import memory as mem
+    model = mem.incore_peak_bytes(shape, p)
+    log(f"[mem] {label} in-core {shape}: device peak "
+        f"{peak / 2 ** 30:.3f} GiB (beyond {base / 2 ** 30:.3f} GiB "
+        f"allocated before), model {model / 2 ** 30:.3f} GiB, model/peak "
+        f"{model / peak:.3f}")
+    summary.setdefault("memory", {}).setdefault(label, []).append(
+        {"shape": list(shape), "peak_bytes": peak, "model_bytes": model})
+    if model < peak:
+        raise AssertionError(f"{label}: memory.incore_peak_bytes "
+                             f"{model} below the measured peak {peak}")
+
+
+def log_streamed_model(label, shape, p, chunk, peak, base, summary) -> None:
+    """Print a streamed run's device peak beside the footprint the model of
+    pick_chunk_z gives for its chunk; raise if the model is below it (the
+    chunk pick_chunk_z chooses would then run out of memory)."""
+    from tpuflow3d_torch.utils import memory as mem
+    model = mem.streamed_peak_bytes(shape, p, chunk)
+    log(f"[mem] {label} streamed {shape}, chunks of {chunk}: device peak "
+        f"{peak / 2 ** 30:.3f} GiB (beyond {base / 2 ** 30:.3f} GiB "
+        f"allocated before), model {model / 2 ** 30:.3f} GiB, model/peak "
+        f"{model / peak:.3f}")
+    summary.setdefault("memory", {}).setdefault(label, []).append(
+        {"shape": list(shape), "chunk": chunk, "peak_bytes": peak,
+         "model_bytes": model})
+    if model < peak:
+        raise AssertionError(f"{label}: memory.streamed_peak_bytes {model} "
+                             f"below the measured peak {peak}")
+
+
 def stream_gate(torch, label, streamed, incore, e_s, e_c, epe_limit):
     """The JAX package's streamed-vs-in-core gate, and the EPE limit."""
     diff = (torch.as_tensor(streamed, device=incore.device) - incore).abs()
@@ -807,28 +865,26 @@ def stream_phases(torch, i0, i1, true, mask, launches, summary) -> None:
         """One streamed run: (flow, wall s, launches, device peak bytes);
         the kernel forms it launches go into ``forms``."""
         kernels.reset_launches()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         with recording_forms(forms):
-            f = compute_flow_piecewise(*pair, pp, chunk_z=STREAM_CHUNK,
-                                       device=dev, **kw)
-        torch.cuda.synchronize()
+            f, peak, base = device_peak(
+                torch, dev, lambda: compute_flow_piecewise(
+                    *pair, pp, chunk_z=STREAM_CHUNK, device=dev, **kw))
         wall = time.perf_counter() - t0
         if f.shape != (3, *pair[0].shape) or not np.isfinite(f).all():
             raise AssertionError(f"{label}: flow of shape {f.shape} or "
                                  f"non-finite")
-        return (f, wall, dict(kernels.LAUNCHES),
-                torch.cuda.max_memory_allocated(dev))
+        if pp.backend != "plain" and kw.get("fuse", True):
+            log_streamed_model(label, pair[0].shape, pp, STREAM_CHUNK, peak,
+                               base, summary)
+        return f, wall, dict(kernels.LAUNCHES), peak
 
-    def incore(pp, pair=(i0, i1)):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
+    def incore(pp, pair=(i0, i1), label=""):
         t0 = time.perf_counter()
-        f = compute_flow(*pair, pp, device=dev)
-        torch.cuda.synchronize()
-        return (f, time.perf_counter() - t0,
-                torch.cuda.max_memory_allocated(dev))
+        f, peak, base = device_peak(
+            torch, dev, lambda: compute_flow(*pair, pp, device=dev))
+        check_incore_model(label, pair[0].shape, pp, peak, base, summary)
+        return f, time.perf_counter() - t0, peak
 
     # 11. ladder256 streamed: kernels against plain, then checkpoint and
     # resume.
@@ -889,7 +945,7 @@ def stream_phases(torch, i0, i1, true, mask, launches, summary) -> None:
     seam = np.isin(np.arange(by_plane.size) % STREAM_CHUNK,
                    (0, 1, STREAM_CHUNK - 2, STREAM_CHUNK - 1))
     e_f, e_u = (syn.epe(f, true, mask) for f in (f_f, f_u))
-    e_c = syn.epe(incore(pp)[0].cpu().numpy(), true, mask)
+    e_c = syn.epe(incore(pp, label=path)[0].cpu().numpy(), true, mask)
     gaps = {}
     for n in (64, 128):
         pair = syn.make_pair((n,) * 3, syn.translation(SHIFT), seed=0)[:2]
@@ -948,7 +1004,7 @@ def stream_phases(torch, i0, i1, true, mask, launches, summary) -> None:
         f"{peak_s / 2 ** 30:.2f} GiB, launches {launches[path]}; "
         f"{host_memory()}")
     log(f"{tag} phases: " + json.dumps(timer.report()))
-    f_c, t_c, peak_c = incore(pp, pair)
+    f_c, t_c, peak_c = incore(pp, pair, label=path)
     log(f"{tag} in-core {t_c:.2f} s, device peak {peak_c / 2 ** 30:.2f} GiB")
     e_s, e_c = (device_epe(torch, f, shift, mask512) for f in (f_s, f_c))
     mx, mean = stream_gate(torch, tag, f_s, f_c, e_s, e_c,
@@ -969,7 +1025,7 @@ def stream_phases(torch, i0, i1, true, mask, launches, summary) -> None:
     f_s, t_s, launches[path], peak_s = streamed(path, pp)
     check_launches(path, launches[path], STREAM_PATHS[path][2])
     check_forms(path, forms, checked)
-    f_c, t_c, peak_c = incore(pp)
+    f_c, t_c, peak_c = incore(pp, label=path)
     e_s = syn.epe(f_s, true, mask)
     e_c = syn.epe(f_c.cpu().numpy(), true, mask)
     log(f"{tag} {elapsed()} 256^3: streamed {t_s:.2f} s (device peak "
@@ -981,6 +1037,261 @@ def stream_phases(torch, i0, i1, true, mask, launches, summary) -> None:
         "streamed_s": t_s, "incore_s": t_c, "device_peak_streamed_bytes":
         peak_s, "device_peak_incore_bytes": peak_c, "max_abs": mx,
         "mean_abs": mean, "epe_streamed": e_s, "epe_incore": e_c}
+    torch.cuda.empty_cache()
+
+
+# Phase 15: the command line at 256^3. The budget of the auto-mode runs
+# (TPUFLOW_DEVICE_BYTES), below the in-core model of both presets and
+# above the streamed multigrid's coarse chain.
+CLI_BUDGET = 1 << 30
+CLI_SEEDS = 300
+
+
+def cli_phase(torch, i0, i1, true, mask, launches, summary) -> None:
+    """Phase 15: ``python -m tpuflow3d_torch.cli`` at 256^3, in this
+    process and as one, through the kernels."""
+    import tempfile
+
+    from tpuflow3d_torch import PRESETS, cli, compute_flow, kernels, vtkio
+    from tpuflow3d_torch import synthetic as syn
+    from tpuflow3d_torch import volume as vio
+    from tpuflow3d_torch.grid import HaloCtx
+    from tpuflow3d_torch.piecewise import DEFAULT_FLOW_CLAMP
+    from tpuflow3d_torch.pipeline import prepare_pyramids
+    from tpuflow3d_torch.utils import memory as mem
+    from tpuflow3d_torch.utils import native
+    from tpuflow3d_torch.warp import warp_volume
+
+    dev = torch.device("cuda", 0)
+    tag = "[15:cli]"
+    res = summary["cli"] = {}
+    torch.cuda.empty_cache()
+    log(f"{tag} {torch.cuda.memory_allocated(dev)} bytes allocated on the "
+        f"device before the command line runs")
+
+    def read_flow(prefix):
+        """(3, D, H, W) (z, y, x) from <prefix>{w,v,u}.raw."""
+        return np.stack([vio.read_raw(f"{prefix}{c}.raw") for c in "wvu"])
+
+    def events(path):
+        with open(path) as f:
+            return [json.loads(line) for line in f]
+
+    def run_cli(label, argv):
+        """cli.main in this process, its launches recorded under
+        ``label``; returns (wall s, device peak, base)."""
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rc, peak, base = device_peak(torch, dev, lambda: cli.main(argv))
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"{tag} {label}: exit code {rc}")
+        launches[label] = dict(kernels.LAUNCHES)
+        return wall, peak, base
+
+    with tempfile.TemporaryDirectory(prefix="tf3d_cli.") as tmp:
+        # 1. The frames i0, i1, i0 as uint16 raws with sidecars; seeds.
+        lo = float(min(i0.min(), i1.min()))
+        scale = 65535.0 / (float(max(i0.max(), i1.max())) - lo)
+        q0, q1 = (np.round((x - lo) * scale).astype(np.uint16)
+                  for x in (i0, i1))
+        frames = [os.path.join(tmp, f"f{t}.raw") for t in range(3)]
+        for path, q in zip(frames, (q0, q1, q0)):
+            vio.write_raw(path, q)
+        if not native.available():
+            raise AssertionError(f"{tag} the native IO library did not "
+                                 f"build: {native.build_error()}")
+        w0, w1 = (native.to_f32(q) for q in (q0, q1))
+        rng = np.random.default_rng(0)
+        # Seeds on texture (phase 4's mask: textured interior voxels), at
+        # sub-voxel offsets.
+        cand = np.argwhere(mask)
+        seeds = (cand[rng.choice(len(cand), CLI_SEEDS, replace=False)]
+                 + rng.uniform(0.0, 1.0, (CLI_SEEDS, 3)))
+        seeds_csv = os.path.join(tmp, "seeds.csv")
+        with open(seeds_csv, "w") as f:
+            f.write("z,y,x\n" + "".join(f"{z:.3f},{y:.3f},{x:.3f}\n"
+                                        for z, y, x in seeds))
+        log(f"{tag} {elapsed()} three uint16 frames with sidecars, "
+            f"{CLI_SEEDS} seeds; native IO {native.library_path().name}")
+
+        # 2. The series in this process.
+        out = os.path.join(tmp, "s_")
+        log_json = os.path.join(tmp, "series.jsonl")
+        wall, peak, base = run_cli("cli", [
+            "--frames", *frames, "--preset", "ladder256", "--track",
+            seeds_csv, "--derived", "divergence,curl,jacdet", "--export-vtk",
+            "--stats", "--report-fit", "--timings", "--log-json", log_json,
+            "--out", out])
+        check_launches("cli", launches["cli"], {
+            "sor_halfsweep": 1800, "warp_grad": 30, "median3": 30})
+        check_incore_model("cli", SHAPE, PRESETS["ladder256"], peak, base,
+                           summary)
+        ev = events(log_json)
+        kinds = [e["event"] for e in ev]
+        for kind in ("start", "pair_done", "tracks_written", "timings",
+                     "fit", "statistics", "derived_written", "vtk_written"):
+            if kind not in kinds:
+                raise AssertionError(f"{tag} no {kind!r} event")
+        if "auto_mode" in kinds:
+            raise AssertionError(f"{tag} 256^3 ladder256 left in-core")
+        pair_s = [e["seconds"] for e in ev if e["event"] == "pair_done"]
+        flow0 = read_flow(f"{out}0000_")
+        ref = compute_flow(w0, w1, PRESETS["ladder256"], device=dev)
+        ref = ref.cpu().numpy()
+        if not np.array_equal(flow0, ref):
+            raise AssertionError(f"{tag} pair 0 differs from compute_flow: "
+                                 f"{float(np.abs(flow0 - ref).max()):.3e}")
+        epe0 = syn.epe(flow0, true, mask)
+        with open(f"{out}tracks.csv") as f:
+            rows = np.loadtxt(f, delimiter=",", skiprows=1)
+        back = rows[rows[:, 0] == 2][:, 2:]
+        drift = np.sqrt(((back - seeds) ** 2).sum(axis=1))
+        vtk, _ = vtkio.read_vtk(f"{out}0000_flow.vtk")
+        log(f"{tag} {elapsed()} series of 3 frames: {wall:.2f} s, pairs "
+            + ", ".join(f"{t:.3f} s" for t in pair_s) + f"; launches "
+            f"{launches['cli']}; pair 0 bitwise compute_flow, EPE "
+            f"{epe0:.6f} (limit 0.03); tracks back at their seeds within "
+            f"{float(drift.max()):.4f} voxel (mean {float(drift.mean()):.4f},"
+            f" limit 0.1)")
+        if epe0 >= 0.03 or drift.max() >= 0.1:
+            raise AssertionError(f"{tag} EPE {epe0} or track drift "
+                                 f"{drift.max()} past its limit")
+        if not np.array_equal(vtk, flow0):
+            raise AssertionError(f"{tag} the VTK flow is not the raw flow")
+        res.update(series_s=wall, pair_s=pair_s, epe_pair0=epe0,
+                   track_drift_max=float(drift.max()))
+
+        # 3. The real entry point: the command line as a process.
+        torch.cuda.empty_cache()
+        out_p = os.path.join(tmp, "p_")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "tpuflow3d_torch.cli", "--frame0",
+             frames[0], "--frame1", frames[1], "--preset", "ladder256",
+             "--out", out_p], capture_output=True, text=True, timeout=600,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, cwd=tmp)
+        t_proc = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"{tag} python -m tpuflow3d_torch.cli: "
+                                 f"exit {proc.returncode}\n{proc.stderr}")
+        if not np.array_equal(read_flow(out_p), flow0):
+            raise AssertionError(f"{tag} the process's flow differs from "
+                                 f"the series' pair 0")
+        log(f"{tag} {elapsed()} python -m tpuflow3d_torch.cli: rc 0 in "
+            f"{t_proc:.2f} s (process start and kernel load included), "
+            f"u/v/w bitwise the series' pair 0")
+        res["process_s"] = t_proc
+
+        # 4. Auto mode under a budget below the in-core model: the window
+        # forms of the chunk pick_chunk_z gives, then the run, capped at
+        # the budget, every form it launched held against plain.
+        total = torch.cuda.get_device_properties(dev).total_memory
+        checked, forms = set(), set()
+        os.environ["TPUFLOW_DEVICE_BYTES"] = str(CLI_BUDGET)
+        try:
+            for preset, expected, limit in (
+                    ("ladder256", {"sor_halfsweep": None, "warp_grad": None,
+                                   "median3": None}, 0.03),
+                    ("accurate", {"warp_grad_tricubic": None,
+                                  "sor_gc": None, "median3": None}, 1e-3)):
+                p = PRESETS[preset]
+                label = f"cli:auto:{preset}"
+                want = mem.pick_chunk_z(SHAPE, p, CLI_BUDGET)
+                # (the mode puts in its flow clamp where the preset has none)
+                p_s = (p if p.flow_clamp > 0 else
+                       p.replace(flow_clamp=DEFAULT_FLOW_CLAMP))
+                pyr0, pyr1, _ = prepare_pyramids(
+                    torch.as_tensor(w0, device=dev),
+                    torch.as_tensor(w1, device=dev), p_s, HaloCtx())
+                window_phase(torch, label, p_s, pyr0, pyr1, summary, checked,
+                             chunk=want)
+                del pyr0, pyr1
+                torch.cuda.empty_cache()
+                forms.clear()
+                out_a = os.path.join(tmp, f"a_{preset}_")
+                log_a = os.path.join(tmp, f"auto_{preset}.jsonl")
+                torch.cuda.set_per_process_memory_fraction(
+                    CLI_BUDGET / total, dev)
+                try:
+                    with recording_forms(forms):
+                        wall, peak, base = run_cli(label, [
+                            "--frame0", frames[0], "--frame1", frames[1],
+                            "--preset", preset, "--log-json", log_a,
+                            "--out", out_a])
+                    reserved = torch.cuda.max_memory_reserved(dev)
+                finally:
+                    torch.cuda.set_per_process_memory_fraction(1.0, dev)
+                check_launches(label, launches[label], expected)
+                check_forms(label, forms, checked)
+                ev = events(log_a)
+                auto = [e for e in ev if e["event"] == "auto_mode"]
+                chunk = [e for e in ev if e["event"] == "auto_chunk"]
+                if not (auto and auto[0]["selected"] == "piecewise"
+                        and chunk and chunk[0]["chunk_z"] == want):
+                    raise AssertionError(f"{tag} {label}: events {auto} "
+                                         f"{chunk}, expected piecewise and "
+                                         f"chunk {want}")
+                log_streamed_model(label, SHAPE, p, want, peak, base,
+                                   summary)
+                incore = (flow0 if preset == "ladder256" else
+                          compute_flow(w0, w1, p, device=dev).cpu().numpy())
+                streamed = read_flow(out_a)
+                e_s, e_c = (syn.epe(f, true, mask) for f in (streamed,
+                                                             incore))
+                mx, mean = stream_gate(torch, f"{tag} {label}", streamed,
+                                       torch.as_tensor(incore), e_s, e_c,
+                                       limit)
+                log(f"{tag} {elapsed()} {label}: in-core model "
+                    f"{auto[0]['need_bytes'] / 2 ** 30:.2f} GiB > budget "
+                    f"{CLI_BUDGET / 2 ** 30:.2f} GiB: piecewise, chunk "
+                    f"{want}, {wall:.2f} s under the allocator capped at the "
+                    f"budget; torch.cuda.max_memory_allocated "
+                    f"{(base + peak) / 2 ** 30:.3f} GiB, "
+                    f"max_memory_reserved {reserved / 2 ** 30:.3f} GiB; "
+                    f"launches {launches[label]}")
+                if base + peak > CLI_BUDGET or reserved > CLI_BUDGET:
+                    raise AssertionError(f"{tag} {label}: device peak "
+                                         f"{base + peak} (with {base} "
+                                         f"allocated before) or reserved "
+                                         f"{reserved} past the budget")
+                res[label] = {"chunk": want, "s": wall, "peak_bytes": peak,
+                              "reserved_bytes": reserved, "max_abs": mx,
+                              "mean_abs": mean, "epe": e_s,
+                              "epe_incore": e_c}
+        finally:
+            del os.environ["TPUFLOW_DEVICE_BYTES"]
+
+        # 5. Apply pair 0's flow to frame 1.
+        out_w = os.path.join(tmp, "w_")
+        run_cli("cli:apply", ["--apply-flow", f"{out}0000_", "--frame1",
+                              frames[1], "--out", out_w])
+        check_launches("cli:apply", launches["cli:apply"], {})
+        warped = vio.read_raw(f"{out_w}warped.raw")
+        ref = warp_volume(torch.as_tensor(w1, device=dev),
+                          torch.as_tensor(flow0, device=dev)).cpu().numpy()
+        before = float(np.abs(w1 - w0).mean())
+        after = float(np.abs(warped - w0).mean())
+        log(f"{tag} --apply-flow: bitwise warp_volume "
+            f"{np.array_equal(warped, ref)}; mean |warped - i0| {after:.3f} "
+            f"against mean |i1 - i0| {before:.3f} (uint16 units)")
+        if not np.array_equal(warped, ref) or after >= before:
+            raise AssertionError(f"{tag} --apply-flow")
+
+        # 6. Forward-backward consistency of the pair.
+        out_c = os.path.join(tmp, "c_")
+        wall, _, _ = run_cli("cli:consistency", [
+            "--frame0", frames[0], "--frame1", frames[1], "--preset",
+            "ladder256", "--check-consistency", "--out", out_c])
+        check_launches("cli:consistency", launches["cli:consistency"], {
+            "sor_halfsweep": 1800, "warp_grad": 30, "median3": 30})
+        err = vio.read_raw(f"{out_c}consistency.raw")
+        med = float(np.median(err[8:-8, 8:-8, 8:-8]))
+        log(f"{tag} {elapsed()} --check-consistency {wall:.2f} s: interior "
+            f"median {med:.5f} voxel (limit 0.25), mean {float(err.mean()):.5f}")
+        if med >= 0.25:
+            raise AssertionError(f"{tag} consistency median {med}")
+        res.update(consistency_median=med)
     torch.cuda.empty_cache()
 
 
@@ -1159,7 +1470,7 @@ def main() -> None:
                 f"staged box, {gathered} from device memory")
             summary[name].setdefault("slabs_staged_device_by_flow", {})[
                 tag] = [staged, gathered]
-    del cases, flow6, flow2, smooth, outlier, warp_flows
+    del cases, flow6, flow2, smooth, outlier, warp_flows, fl
 
     # The sweeps: K1 and K6 flat, K4 and K7 packed, on the same terms, stored
     # in float32 and in bfloat16.
@@ -1353,6 +1664,9 @@ def main() -> None:
                 t_32)
             del small, st, ref, got, spar
         del terms, gterms, tt
+        # The last cases' tensors would stay allocated through the runs
+        # whose device peaks are measured below.
+        cases = variants = aterms = args = nulls = pair = fields = None
         torch.cuda.empty_cache()
     del flow, du, g, it, i1w, gc, parity
 
@@ -1383,18 +1697,20 @@ def main() -> None:
             PATHS.items(), start=4):
         pp = PRESETS[preset].replace(**changes)
         kernels.reset_launches()
-        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        f_auto = compute_flow(i0, i1, pp, device=dev)
-        torch.cuda.synchronize()
+        f_auto, peak, base = device_peak(
+            torch, dev, lambda: compute_flow(i0, i1, pp, device=dev))
         t_auto = time.perf_counter() - t0
         launches[path] = dict(kernels.LAUNCHES)
+        check_incore_model(path, SHAPE, pp, peak, base, summary)
         t0 = time.perf_counter()
-        f_plain = compute_flow(i0, i1, pp.replace(backend="plain"),
-                               device=dev)
-        torch.cuda.synchronize()
+        f_plain, peak_p, _ = device_peak(
+            torch, dev, lambda: compute_flow(
+                i0, i1, pp.replace(backend="plain"), device=dev))
         t_plain = time.perf_counter() - t0
         tag = f"[{phase}:{path}]"
+        log(f"{tag} device peak of the plain run {peak_p / 2 ** 30:.3f} GiB "
+            f"(not modelled: on the GPU the command line runs the kernels)")
         log(f"{tag} 256^3: kernels {t_auto:.2f} s, plain {t_plain:.2f} s; "
             f"launches {launches[path]}")
         check_launches(path, launches[path], expected)
@@ -1418,19 +1734,20 @@ def main() -> None:
                 < epe_limit):
             raise AssertionError(f"{path}: EPE {e_auto} vs plain {e_plain}, "
                                  f"limit {epe_limit}")
-        del f_auto, f_plain, diff
+        del f_auto, f_plain, f, diff
         if path in ("ladder256", "accurate", "packed"):
             profile_split(torch, lambda: compute_flow(i0, i1, pp, device=dev))
         torch.cuda.empty_cache()
 
     # 10. The two sweep layouts end to end, in turns on this card: host clock
     # around compute_flow from numpy volumes to a synchronized device.
-    def wall(pp):
-        torch.cuda.synchronize()
+    def wall(pp, label):
         t0 = time.perf_counter()
-        compute_flow(i0, i1, pp, device=dev)
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
+        _, peak, base = device_peak(
+            torch, dev, lambda: compute_flow(i0, i1, pp, device=dev))
+        t = time.perf_counter() - t0
+        check_incore_model(label, SHAPE, pp, peak, base, summary)
+        return t
 
     for flat, packed in (("ladder256", "packed"), ("gamma", "packed_gamma")):
         pf, pk = (PRESETS[PATHS[k][0]].replace(**PATHS[k][1])
@@ -1439,7 +1756,7 @@ def main() -> None:
         for _ in range(LAYOUT_TURNS):
             for key, pp in ((flat, pf), (packed, pk), (packed, pk),
                             (flat, pf)):
-                times[key].append(wall(pp))
+                times[key].append(wall(pp, key))
         log(f"[10:layouts] {elapsed()} " + "; ".join(
             f"{key} median {statistics.median(ts):.4f} s (min "
             f"{min(ts):.4f}, max {max(ts):.4f}, {len(ts)} runs)"
@@ -1449,6 +1766,11 @@ def main() -> None:
     # 11-14. The streamed (out-of-core) paths.
     stream_phases(torch, i0, i1, true, mask, launches, summary)
     log("[stream] " + json.dumps(summary.pop("stream")))
+
+    # 15. The command line.
+    cli_phase(torch, i0, i1, true, mask, launches, summary)
+    log("[cli] " + json.dumps(summary.pop("cli")))
+    log("[mem] " + json.dumps(summary.pop("memory")))
 
     log(card)
     log(json.dumps({"kernels": [

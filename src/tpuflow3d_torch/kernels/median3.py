@@ -16,6 +16,13 @@ from tpuflow3d_torch.grid import HaloCtx
 from tpuflow3d_torch.median import median3 as _plain
 
 
+def grid_fits(c: int, d: int, h: int, w: int) -> bool:
+    """Whether K3 takes a (C, D, H, W) tensor: 32-bit indices and 16 rows
+    a block on the launch grid, so C*D*H*W below 2^31 and H at most
+    1048560."""
+    return c * d * h * w < 2 ** 31 and h <= 16 * 65535
+
+
 def median3(x: torch.Tensor, ctx: HaloCtx = HaloCtx()) -> torch.Tensor:
     """27-point median of each component of x (C, D, H, W)."""
     if x.device.type == "cpu":
@@ -26,8 +33,7 @@ def median3(x: torch.Tensor, ctx: HaloCtx = HaloCtx()) -> torch.Tensor:
         raise ValueError(f"median3: expected (C, D, H, W), got "
                          f"{tuple(x.shape)}")
     cch, d, h, w = x.shape
-    # 32-bit indices; 16 rows a block on the launch grid.
-    if cch * d * h * w >= 2 ** 31 or h > 16 * 65535:
+    if not grid_fits(cch, d, h, w):
         raise ValueError(f"median3: {tuple(x.shape)} past the kernel's "
                          f"limits (C*D*H*W < 2^31, H <= 1048560)")
     dev = x.device

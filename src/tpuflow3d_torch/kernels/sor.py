@@ -43,6 +43,13 @@ def plain_sweeps(du: torch.Tensor, t: SolveTerms, omega: float, n: int,
     return du
 
 
+def grid_fits(d: int, h: int, w: int) -> bool:
+    """Whether the flat sweep kernels (K1, K6) take a (D, H, W) grid: they
+    index with 32 bits and put D and the blocks of 8 rows on the launch
+    grid, so D at most 65535, H at most 524280, 6*D*H*W below 2^31."""
+    return d <= 65535 and h <= 8 * 65535 and 6 * d * h * w < 2 ** 31
+
+
 def launch_flat(name: str, entry: str, du: torch.Tensor, c: torch.Tensor,
                 g, psi_s: torch.Tensor, aux_name: str, aux: torch.Tensor,
                 aux_fields: int, halves: tuple, omega: float, colours: int,
@@ -52,11 +59,10 @@ def launch_flat(name: str, entry: str, du: torch.Tensor, c: torch.Tensor,
     half-sweep (n = 1), RED_THEN_BLACK n full sweeps on a slab that is the
     whole volume. ``aux`` is psi_d (aux_fields 0: shape (D, H, W)) or ainv
     (6 fields); ``halves`` the half-alphas per axis (z, y, x). Counts the
-    launches under ``name`` and returns the new iterate. The kernels index
-    with 32 bits and put D and the blocks of 8 rows on the launch grid: D
-    at most 65535, H at most 524280, D*H*W below 2^31 / 6."""
+    launches under ``name`` and returns the new iterate (``grid_fits``
+    gives the grids the kernels take)."""
     _, d, h, w = du.shape
-    if d > 65535 or h > 8 * 65535 or 6 * d * h * w >= 2 ** 31:
+    if not grid_fits(d, h, w):
         raise ValueError(f"{name}: grid {(d, h, w)} past the kernels' limits "
                          f"(D <= 65535, H <= 524280, 6*D*H*W < 2^31)")
     dev = du.device

@@ -30,6 +30,13 @@ from tpuflow3d_torch.grid import HaloCtx
 from tpuflow3d_torch.warp import warp_volume
 
 
+def grid_fits(d: int, h: int, w: int) -> bool:
+    """Whether K2/K5 take a (D, H, W) volume: 32-bit indices (the flow's
+    third component starts at 2*D*H*W) and 16 rows a block on the launch
+    grid, so 3*D*H*W below 2^31 and H at most 1048560."""
+    return 3 * d * h * w < 2 ** 31 and h <= 16 * 65535
+
+
 def warp_grad(i1: torch.Tensor, flow: torch.Tensor, i0: torch.Tensor,
               ctx: HaloCtx = HaloCtx(), interp: str = "trilinear",
               emit_warped: bool = False, staged: bool = True,
@@ -48,9 +55,7 @@ def warp_grad(i1: torch.Tensor, flow: torch.Tensor, i0: torch.Tensor,
     if i1.device.type != "cuda":
         raise RuntimeError(f"warp_grad: no kernel for {i1.device}")
     d, h, w = i1.shape
-    # 32-bit indices (flow's third component at 2*D*H*W); 16 rows a block
-    # on the launch grid.
-    if 3 * d * h * w >= 2 ** 31 or h > 16 * 65535:
+    if not grid_fits(d, h, w):
         raise ValueError(f"warp_grad: {tuple(i1.shape)} past the kernel's "
                          f"limits (3*D*H*W < 2^31, H <= 1048560)")
     dev = i1.device

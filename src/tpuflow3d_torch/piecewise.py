@@ -52,6 +52,7 @@ from __future__ import annotations
 
 import math
 from functools import partial
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -70,6 +71,7 @@ from tpuflow3d_torch.pyramid import (gaussian_kernel1d, resize_axis_local,
                                      resize_z_window, smooth)
 from tpuflow3d_torch.solver import (compute_terms, jacobi_sweep, parity_mask,
                                     sor_halfsweep, sweep_terms)
+from tpuflow3d_torch.utils import native
 from tpuflow3d_torch.utils.profiling import PhaseTimer
 
 DEFAULT_FLOW_CLAMP = 4.0
@@ -400,6 +402,23 @@ def _ph_resample(xs, z0_out: int, z0_in: int, sigma: float, out_len: int,
 
 # ---- streaming loops ----
 
+def _chunk_slabs(d: int, chunk: int, margin: int):
+    """(slab planes, the z0 of every slab) of a ``_stream`` pass: one slab
+    per chunk, ``margin`` planes on each side."""
+    return chunk + 2 * margin, tuple(z - margin for z in range(0, d, chunk))
+
+
+def _wave_slabs(d: int, chunk: int, s2: int, margin: int):
+    """(slab planes, the z0 of every launch) of a wavefront pass of ``s2``
+    half-sweeps (the trapezoid, margin 1; the fused pass, margin
+    ``stream_margin``): ceil(d / chunk) + 1 launches, the last draining
+    the graded frontier band; launch k's slab starts at
+    (k - 1) * chunk - margin."""
+    n_launch = -(-d // chunk) + 1
+    return (chunk + s2 + 2 * margin,
+            tuple((k - 1) * chunk - margin for k in range(n_launch)))
+
+
 def _stream_sor_trapezoid(du, terms, phase, p: FlowParams, chunk: int,
                           st: _Stager, sweeps: int | None = None
                           ) -> np.ndarray:
@@ -411,10 +430,8 @@ def _stream_sor_trapezoid(du, terms, phase, p: FlowParams, chunk: int,
     half-sweeps."""
     d = du.shape[-3]
     s2 = 2 * (p.sweeps if sweeps is None else sweeps)
-    size = chunk + s2 + 2
-    n_launch = -(-d // chunk) + 1  # +1 drains the graded frontier band
-    for k in range(n_launch):
-        lo = (k - 1) * chunk - 1
+    size, los = _wave_slabs(d, chunk, s2, 1)
+    for k, lo in enumerate(los):
         slabs = [st.put(x, lo, size) for x in (du, *terms)]
         res = phase(*slabs, lo, k * chunk)
         w0 = max((k - 1) * chunk, 0)       # F_2S(k-1)
@@ -432,11 +449,10 @@ def _stream_fused_warp_iteration(i0l, i1l, flow, p: FlowParams, chunk: int,
     launch k+1 is enqueued."""
     d, h, w = i0l.shape
     s2 = 2 * p.sweeps
-    size = chunk + s2 + 2 * mw
+    size, los = _wave_slabs(d, chunk, s2, mw)
     out = np.empty_like(flow)
     carry = torch.zeros((3, s2 + 2, h, w), dtype=torch.float32,
                         device=st.device)
-    n_launch = -(-d // chunk) + 1  # +1 drains the graded frontier band
     pending = None  # (copy handle, write window w0:w1)
 
     def drain(pd):
@@ -444,9 +460,8 @@ def _stream_fused_warp_iteration(i0l, i1l, flow, p: FlowParams, chunk: int,
             handle, pw0, pw1 = pd
             st.store(out[:, pw0:pw1], handle)
 
-    for k in range(n_launch):
+    for k, lo in enumerate(los):
         kbase = k * chunk
-        lo = kbase - chunk - mw
         slabs = [st.put(x, lo, size) for x in (i0l, i1l, flow)]
         fl_new, carry = _ph_fused_warp_iter(*slabs, carry, lo, kbase, d, p,
                                             p.sweeps, chunk)
@@ -477,7 +492,7 @@ def _stream(fn, inputs: list[np.ndarray], margin: int, chunk: int,
         raise ValueError("pipeline=True requires outputs disjoint from "
                          "inputs")
     d = inputs[0].shape[-3]
-    size = chunk + 2 * margin
+    size, los = _chunk_slabs(d, chunk, margin)
     pending = None  # (copy handles, z0, z1)
 
     def drain(pd):
@@ -486,10 +501,11 @@ def _stream(fn, inputs: list[np.ndarray], margin: int, chunk: int,
             for o, hd in zip(outs, handles):
                 st.store(o[..., z0:z1, :, :], hd)
 
-    for z0 in range(0, d, chunk):
+    for lo in los:
+        z0 = lo + margin
         z1 = min(z0 + chunk, d)
-        slabs = [st.put(x, z0 - margin, size) for x in inputs]
-        res = fn(*slabs, z0 - margin)
+        slabs = [st.put(x, lo, size) for x in inputs]
+        res = fn(*slabs, lo)
         if not isinstance(res, tuple):
             res = (res,)
         handles = [st.get(r.narrow(-3, margin, z1 - z0)) for r in res]
@@ -578,13 +594,23 @@ def stream_margin(p: FlowParams) -> int:
             + (1 if p.interp == "tricubic" else 0) + r_terms)
 
 
+# Margin planes of the sweep-constant phases: the weight at plane z reads
+# psi_s at z+-1, which reads flow and du at z+-2.
+TERMS_MARGIN = 2
+
+
+def _fused(p: FlowParams, temporal_block: bool, fuse: bool) -> bool:
+    """Whether a level runs each warp iteration as one fused pass."""
+    return (fuse and temporal_block and p.solver == "sor"
+            and p.inner_iterations == 1)
+
+
 def _solve_level_streamed(i0l, i1l, flow, p: FlowParams, chunk: int,
                           st: _Stager, temporal_block: bool = True,
                           fuse: bool = True):
     d, h, w = i0l.shape
     mw = stream_margin(p)
-    if (fuse and temporal_block and p.solver == "sor"
-            and p.inner_iterations == 1):
+    if _fused(p, temporal_block, fuse):
         # One nonlinear iteration: the whole warp iteration is one
         # streamed pass, the du frontier band carried on the device.
         for _ in range(p.warps):
@@ -615,8 +641,8 @@ def _solve_level_streamed(i0l, i1l, flow, p: FlowParams, chunk: int,
                             st, pipeline=True)
                 else:
                     _stream(partial(_ph_terms_mg, dg=d, p=p),
-                            [g, it, flow, du], 2, chunk, [c, pss, d6], st,
-                            pipeline=True)
+                            [g, it, flow, du], TERMS_MARGIN, chunk,
+                            [c, pss, d6], st, pipeline=True)
                 du = _stream_mg_solve(du, c, pss, d6, p, chunk, st)
                 continue
             if gamma:
@@ -630,10 +656,9 @@ def _solve_level_streamed(i0l, i1l, flow, p: FlowParams, chunk: int,
                 tarr = [c, pss, ainv]
             else:
                 psd = np.empty(vol1, np.float32)
-                # Margin 2, not 1: the weight at plane z reads psi_s at
-                # z+-1, which reads flow and du at z+-2.
                 _stream(partial(_ph_terms, dg=d, p=p), [g, it, flow, du],
-                        2, chunk, [c, pss, psd], st, pipeline=True)
+                        TERMS_MARGIN, chunk, [c, pss, psd], st,
+                        pipeline=True)
                 tarr = [c, g, pss, psd]
             if p.solver == "sor" and temporal_block:
                 ph = partial(_ph_sor_trapezoid, dg=d, p=p, sweeps=p.sweeps,
@@ -663,6 +688,66 @@ def _solve_level_streamed(i0l, i1l, flow, p: FlowParams, chunk: int,
         if p.flow_clamp > 0:
             np.clip(flow, -p.flow_clamp, p.flow_clamp, out=flow)
     return flow
+
+
+class StreamPass(NamedTuple):
+    """One streamed slab pass of a level (``level_plan``): its phase, the
+    planes of every slab it sends to the device, the global z0 of each
+    (the faces replicate below 0 and past the depth) and, for a sweep
+    pass, its sweeps."""
+    name: str
+    planes: int
+    z0s: tuple
+    sweeps: int = 0
+
+
+def level_plan(p: FlowParams, shape, chunk: int, temporal_block: bool = True,
+               fuse: bool = True) -> list:
+    """The slab passes ``_solve_level_streamed`` makes over a level of
+    global ``shape`` with Z-chunks of ``chunk``, in the order of one warp
+    iteration, each distinct pass once (the inner iterations, warps and
+    V-cycles repeat them): ``fused`` (warp + terms + sweeps + median in
+    one launch), ``warp``, ``terms`` / ``terms_mg`` / ``terms_gc`` (the
+    last warps too), ``sor`` (the trapezoid), ``halfsweep``, ``jacobi``,
+    ``mg_smooth`` (one per distinct sweep count), ``mg_residual`` and
+    ``median``. The resampling passes (pyramid, flow upsampling, the
+    multigrid restriction) are not in it. A non-positive flow_clamp is
+    read as DEFAULT_FLOW_CLAMP, as the mode runs it. The device-memory
+    model (``utils.memory``) reads it."""
+    if p.flow_clamp <= 0:
+        p = p.replace(flow_clamp=DEFAULT_FLOW_CLAMP)
+    d = int(shape[0])
+    mw = stream_margin(p)
+    s2 = 2 * p.sweeps
+    if _fused(p, temporal_block, fuse):
+        return [StreamPass("fused", *_wave_slabs(d, chunk, s2, mw),
+                           p.sweeps)]
+    gamma = p.gamma > 0.0
+    plan = [] if gamma else [StreamPass("warp", *_chunk_slabs(d, chunk, mw))]
+    if gamma:
+        plan.append(StreamPass("terms_gc", *_chunk_slabs(d, chunk, mw)))
+    else:
+        plan.append(StreamPass(
+            "terms_mg" if p.solver == "multigrid" else "terms",
+            *_chunk_slabs(d, chunk, TERMS_MARGIN)))
+    if p.solver == "multigrid":
+        single = len(mg_shapes(tuple(shape), 1)) == 1
+        smooths = ((p.mg_pre, p.mg_coarse_sweeps) if single
+                   else (p.mg_pre, p.mg_post))
+        plan += [StreamPass("mg_smooth", *_wave_slabs(d, chunk, 2 * n, 1), n)
+                 for n in sorted(set(smooths)) if n > 0]
+        if not single:
+            plan.append(StreamPass("mg_residual", *_chunk_slabs(d, chunk, 1)))
+    elif p.solver == "sor" and temporal_block:
+        plan.append(StreamPass("sor", *_wave_slabs(d, chunk, s2, 1),
+                               p.sweeps))
+    elif p.solver == "sor":
+        plan.append(StreamPass("halfsweep", *_chunk_slabs(d, chunk, 1), 1))
+    else:
+        plan.append(StreamPass("jacobi", *_chunk_slabs(d, chunk, 1), 1))
+    if p.median:
+        plan.append(StreamPass("median", *_chunk_slabs(d, chunk, 1)))
+    return plan
 
 
 def compute_flow_piecewise(i0, i1, params: FlowParams = FlowParams(),
@@ -709,8 +794,10 @@ def compute_flow_piecewise(i0, i1, params: FlowParams = FlowParams(),
         i1 = np.concatenate([i1, np.repeat(i1[-1:], d_pad - d_orig, 0)], 0)
 
     if p.normalize:
-        mn = np.float32(min(i0.min(), i1.min()))
-        mx = np.float32(max(i0.max(), i1.max()))
+        mm0 = native.minmax_f32(i0) or (float(i0.min()), float(i0.max()))
+        mm1 = native.minmax_f32(i1) or (float(i1.min()), float(i1.max()))
+        mn = np.float32(min(mm0[0], mm1[0]))
+        mx = np.float32(max(mm0[1], mm1[1]))
         scale = np.float32(1.0) / max(mx - mn, np.float32(1e-12))
         i0 = (i0 - mn) * scale
         i1 = (i1 - mn) * scale
