@@ -89,6 +89,31 @@
    the budget, the streamed-vs-in-core gate; ``--apply-flow`` bitwise
    ``warp_volume`` and no kernel launched; ``--check-consistency``
    (exactly K1 1800, K2 30, K3 30).
+16. The Z-sharded paths (``[16:shard]``): two ranks spawned on cuda:0,
+   joined through gloo by ``distributed.initialize`` (the halos pass
+   through host memory), run ``ladder256``, ``accurate``, gamma 1,
+   ``packed`` and ``packed_gamma`` with ``sharding.prepare_params(., 2)``
+   (flow clamp 4 where the preset has none). Before each path every rank
+   holds each kernel form the path launches, on its slab of every level
+   of its sharded pyramid, bitwise against the plain version under the
+   same context: K2/K5 in halo form (on the finest level timed: the
+   kernel alone while the other rank waits, the wrapper with its
+   exchanges and the plain version with both ranks running), K1 or K6 one
+   colour, K6 on every multigrid level, K4 or K7, K3, each with its
+   neighbour's planes; then it runs ``compute_flow_sharded`` (SPMD) with
+   every launched form recorded, failing on one not held, and reports its
+   launches (exactly 1800 K1, K6, K4 or K7 on the SOR paths), wall time,
+   device peak beside ``memory.sharded_peak_bytes`` and the halo
+   exchanges' count, bytes and seconds. The gathered flow must be within
+   the JAX package's sharded gate (atol 2e-4, rtol 1e-3) of the one-device
+   flow of the same params, and within the EPE limits.
+   ``compute_flow_sharded`` called from this process (spawning the ranks
+   itself) must give the SPMD flow's bits. Then two ``python -m
+   tpuflow3d_torch.cli --distributed`` processes on the card (float32
+   raws, host-local slab IO, ``ladder256``): bitwise the sharded flow; the
+   same with a checkpoint directory and rank 1 killed at the first level
+   checkpoint: the survivor must exit non-zero within 120 s, and a
+   relaunch resumes to the same bits.
 
 Every in-core run through the kernels (phases 4-10, 12-15) prints its
 device peak (``torch.cuda.max_memory_allocated`` beyond what was allocated
@@ -97,8 +122,9 @@ run its peak beside ``utils.memory.streamed_peak_bytes`` for its chunk
 (``[mem]``); each fails if the model is below the peak.
 
 Every failure raises, so the exit code is non-zero. The last two lines are
-a JSON summary of the kernels and {"ok": true, "device": {...}}. Imports
-nothing of JAX.
+a JSON summary of the kernels (K2 and K5 in halo form as entries of their
+own, with their launches on the sharded paths) and {"ok": true,
+"device": {...}}. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -456,14 +482,18 @@ def check_launches(label: str, launches: dict, expected: dict) -> None:
 
 
 @contextlib.contextmanager
-def recording_forms(forms: set):
-    """For the length of the block, wrap the wrappers of the kernels that
-    the streamed mode runs on slabs (K1 and K6 one colour, K2/K5, K3) so
-    that each call adds its form to ``forms``: (kernel, slab shape, omega)
-    for a sweep, (kernel, slab shape, emit) for a warp, (kernel, shape)
-    for the median. The wrapped functions count their launches as
-    before; the mode imports the wrappers at the call."""
+def recording_forms(forms: set, sharded: bool = False):
+    """For the length of the block, wrap the kernel wrappers that a run
+    calls so that each call adds its form to ``forms``: (kernel, slab
+    shape, omega) for a flat sweep, (kernel, slab shape, emit) for a warp,
+    (kernel, packed shape) for a packed half-sweep, (kernel, shape) for
+    the median. The streamed mode calls K1 and K6 one colour at a time
+    (``sor_halfsweep``, ``sor_halfsweep_gc``); a sharded run (``sharded``)
+    calls them through ``sor_sweeps``/``sor_gc_sweeps``, and K4/K7. The
+    wrapped functions count their launches as before; the callers import
+    the wrappers at the call."""
     from tpuflow3d_torch.kernels import median3 as m3, sor as k1, sor_gc as k6
+    from tpuflow3d_torch.kernels import sor_gc_packed as k7, sor_packed as k4
     from tpuflow3d_torch.kernels import warp_grad as kw
 
     def warp_key(i1, flow, i0, ctx=None, interp="trilinear",
@@ -471,12 +501,23 @@ def recording_forms(forms: set):
         name = "warp_grad_tricubic" if interp == "tricubic" else "warp_grad"
         return name, tuple(i1.shape), bool(emit_warped)
 
-    keys = {(k1, "sor_halfsweep"): lambda du, t, alpha, omega, *_, **__: (
-                "sor_halfsweep", tuple(du.shape), float(omega)),
-            (k6, "sor_halfsweep_gc"): lambda du, t, alpha, omega, *_, **__: (
-                "sor_gc", tuple(du.shape), float(omega)),
-            (kw, "warp_grad"): warp_key,
+    def sweep(name):
+        return lambda du, t, alpha, omega, *_, **__: (
+            name, tuple(du.shape), float(omega))
+
+    def packed(name):
+        return lambda du, *_, **__: (name, tuple(du.shape))
+
+    keys = {(kw, "warp_grad"): warp_key,
             (m3, "median3"): lambda x, *_, **__: ("median3", tuple(x.shape))}
+    if sharded:
+        keys.update({(k1, "sor_sweeps"): sweep("sor_halfsweep"),
+                     (k6, "sor_gc_sweeps"): sweep("sor_gc"),
+                     (k4, "sor_halfsweep_packed"): packed("sor_packed"),
+                     (k7, "sor_halfsweep_gc_packed"): packed("sor_gc_packed")})
+    else:
+        keys.update({(k1, "sor_halfsweep"): sweep("sor_halfsweep"),
+                     (k6, "sor_halfsweep_gc"): sweep("sor_gc")})
     saved = {}
     for (mod, attr), key in keys.items():
         fn = saved[mod, attr] = getattr(mod, attr)
@@ -1295,6 +1336,559 @@ def cli_phase(torch, i0, i1, true, mask, launches, summary) -> None:
     torch.cuda.empty_cache()
 
 
+# The Z-sharded paths, phase 16: two ranks sharing the card through gloo,
+# each path's flow against the one-device flow of the same prepare_params.
+# path -> (preset, changes, the kernels each rank must launch, EPE limit),
+# as PATHS. A shard is never the whole volume, so every sweep launches one
+# colour with its neighbour's planes: 5 levels x 3 warps x 3 inner
+# iterations x 20 sweeps x 2 colours = 1800 K1, K6 (no one-block form), K4
+# or K7 on each rank.
+SHARD_RANKS = 2
+SHARD_DEVICE = "cuda:0"
+SHARD_PATHS = {
+    "ladder256": ("ladder256", {},
+                  {"sor_halfsweep": 1800, "warp_grad": None,
+                   "median3": None}, 0.03),
+    "accurate": ("accurate", {},
+                 {"warp_grad_tricubic": None, "sor_gc": None,
+                  "median3": None}, 1e-3),
+    "gamma": ("ladder256", {"gamma": 1.0},
+              {"warp_grad": None, "sor_gc": 1800, "median3": None}, 0.03),
+    "packed": ("ladder256", {"sweep_layout": "packed"},
+               {"sor_packed": 1800, "warp_grad": None, "median3": None},
+               0.03),
+    "packed_gamma": ("ladder256", {"sweep_layout": "packed", "gamma": 1.0},
+                     {"sor_gc_packed": 1800, "warp_grad": None,
+                      "median3": None}, 0.03),
+}
+# The JAX package's sharded-vs-unsharded gate (tests/test_sharding.py).
+SHARD_GATE = (2e-4, 1e-3)
+# Seconds the survivor of a killed --distributed rank may take to exit.
+FAULT_BOUND_S = 120
+# Rank 1 of the fault run: a thread ends the process (exit 17) the moment
+# the first level checkpoint appears, mid-solve; then the command line.
+DIE_AT_FIRST_CHECKPOINT = """
+import os, sys, threading, time
+from tpuflow3d_torch import checkpoint, cli
+ck = sys.argv[sys.argv.index("--checkpoint-dir") + 1]
+def watch():
+    while checkpoint.peek_level_checkpoint(ck) is None:
+        time.sleep(0.02)
+    os._exit(17)
+threading.Thread(target=watch, daemon=True).start()
+sys.exit(cli.main(sys.argv[1:]))
+"""
+
+
+def shard_params(path):
+    from tpuflow3d_torch import PRESETS
+    from tpuflow3d_torch.sharding import prepare_params
+    preset, changes = SHARD_PATHS[path][:2]
+    return prepare_params(PRESETS[preset].replace(**changes), SHARD_RANKS)
+
+
+def shard_forms(torch, label, pp, i0, i1, ctx, dev, timings: dict):
+    """On this rank, before path ``label`` runs: each kernel form that the
+    path launches, on its slab of every level of its sharded pyramid (made
+    by ``prepare_pyramids`` under the sharded context), bitwise against
+    its plain version under the same context, neighbours' planes and all:
+    K2/K5 in halo form (flows uniform within +-flow_clamp), K1 or K6 one
+    colour (rank-1, gradient-constancy or every multigrid level's
+    system), K4 or K7 with their halo planes, K3 with its halo planes.
+    Returns the forms held, as ``recording_forms(sharded=True)`` keys
+    them, and the largest |kernel - plain| of the warp's halo form over
+    the levels, by kernel name. With ``timings`` (rank 0's dict), the finest level's warp is timed: the
+    kernel on padded inputs while the other rank waits (its own time on
+    the card), and the wrapper (halo exchanges included) and the plain
+    version with both ranks running; beside its bound."""
+    import torch.distributed as dist
+
+    from tpuflow3d_torch.derivatives import derivatives, grad_constancy_terms
+    from tpuflow3d_torch.kernels.median3 import median3 as k_median3
+    from tpuflow3d_torch.kernels.sor import sor_halfsweep as k_sor
+    from tpuflow3d_torch.kernels.sor_gc import sor_halfsweep_gc as k_sor_gc
+    from tpuflow3d_torch.kernels.sor_gc_packed import (
+        sor_halfsweep_gc_packed as k_sor_gc_packed,
+        sor_halfsweep_gc_packed_plain)
+    from tpuflow3d_torch.kernels.sor_packed import (
+        pack_color, sor_halfsweep_packed as k_sor_packed,
+        sor_halfsweep_packed_plain)
+    from tpuflow3d_torch.kernels.warp_grad import (warp_grad as k_warp_grad,
+                                                   warp_grad_halo)
+    from tpuflow3d_torch.median import median3
+    from tpuflow3d_torch.mgsolver import build_mg_levels
+    from tpuflow3d_torch.pipeline import prepare_pyramids, warp_and_derivatives
+    from tpuflow3d_torch.sharding import process_z_range
+    from tpuflow3d_torch.solver import compute_terms, parity_mask, sor_halfsweep
+    from tpuflow3d_torch.warp import warp_halo, warp_volume
+
+    tag = f"[shard:{label}] rank {ctx.rank}"
+    lo, hi = process_z_range(i0.shape[0], ctx.n_shards, ctx.rank)
+    pyr0, pyr1, _ = prepare_pyramids(torch.as_tensor(i0[lo:hi], device=dev),
+                                     torch.as_tensor(i1[lo:hi], device=dev),
+                                     pp, ctx)
+    gen = torch.Generator(device=dev).manual_seed(16 + ctx.rank)
+    gamma = pp.gamma > 0.0
+    warp_name = "warp_grad_tricubic" if pp.interp == "tricubic" else \
+        "warp_grad"
+    checked = set()
+    n_checked = 0
+    errs = {}
+
+    def rand(shape, scale, uniform=False):
+        if uniform:
+            return (torch.rand(shape, device=dev, generator=gen) * 2.0
+                    - 1.0) * scale
+        return torch.randn(shape, device=dev, generator=gen) * scale
+
+    def same(what, got, ref, kernel=None):
+        nonlocal n_checked
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        if kernel is not None:
+            errs[kernel] = max(err, errs.get(kernel, 0.0))
+        if len(got) != len(ref) or not all(
+                torch.equal(a, b) for a, b in zip(got, ref)):
+            raise AssertionError(f"{tag} {what}: not bitwise equal to plain "
+                                 f"(max |diff| {err:.3e})")
+        n_checked += 1
+
+    for li, (v0, v1) in enumerate(zip(pyr0, pyr1)):
+        dl, h, w = v0.shape
+        at = f"{dl}x{h}x{w} (level {li})"
+        fl = rand((3, dl, h, w), pp.flow_clamp, uniform=True)
+
+        def kern():
+            return k_warp_grad(v1, fl, v0, ctx, interp=pp.interp,
+                               emit_warped=gamma, max_disp=pp.flow_clamp)
+
+        def plain():
+            i1w = warp_volume(v1, fl, ctx, max_disp=pp.flow_clamp,
+                              interp=pp.interp)
+            g, it = derivatives(v0, i1w, ctx)
+            return (g, it, i1w) if gamma else (g, it)
+
+        same(f"{warp_name} halo form {at}", kern(), plain(), warp_name)
+        checked.add((warp_name, (dl, h, w), gamma))
+        if li == 0:
+            # Every rank runs the same timed loops (the wrapper and the
+            # plain version exchange planes); the kernel alone is timed
+            # on rank 0 while the other rank waits.
+            nh = warp_halo(pp.flow_clamp, pp.interp)
+            padded = (ctx.zpad(v1, nh + 1).contiguous(),
+                      ctx.zpad(fl, 1).contiguous(),
+                      ctx.zpad(v0, 1).contiguous())
+            bare = None
+            if ctx.rank == 0:
+                bare = cuda_ms(torch, lambda: warp_grad_halo(
+                    *padded, ctx.z0(dl), ctx.d_global(dl), nh, pp.interp,
+                    gamma))
+            dist.barrier(ctx.group)
+            wrapper_ms, plain_ms = cuda_ms(torch, kern), cuda_ms(torch, plain)
+            if timings is not None:
+                n = dl * h * w
+                b = bound(warp_name, tensor_bytes(*padded)
+                          + (5 if gamma else 4) * 4 * n, n)
+                key = f"{warp_name}/halo{'/emit' if gamma else ''}"
+                timings.setdefault(key, {
+                    "ms": bare, "wrapper_ms": wrapper_ms,
+                    "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
+                    "bound_by": b["bound_by"], "slab": [dl, h, w],
+                    "halo_planes": nh + 1, "flow_clamp": pp.flow_clamp})
+                log(f"{tag} {key} {at}: kernel alone {bare:.3f} ms, wrapper "
+                    f"with its exchanges {wrapper_ms:.3f} ms and plain "
+                    f"{plain_ms:.3f} ms (both ranks running), bound "
+                    f"{b['bound_ms']:.3f} ms by {b['bound_by']}")
+            del padded
+
+        du = rand((3, dl, h, w), 0.05)
+        if pp.solver == "multigrid":
+            g, it, _ = warp_and_derivatives(v0, v1, fl, pp, ctx)
+            t = compute_terms(g, it, fl, du, pp, ctx)
+            for mi, lvl in enumerate(build_mg_levels(t, pp, ctx)):
+                shp = tuple(lvl.psi_s.shape)
+                dm = rand((3, *shp), 0.05)
+                tt = lvl.terms._replace(c=rand((3, *shp), 0.01))
+                for color in (0, 1):
+                    same(f"sor_gc multigrid level {mi} {shp} colour {color}",
+                         k_sor_gc(dm, tt, lvl.axis_alpha, pp.mg_omega, color,
+                                  ctx),
+                         sor_halfsweep(dm, tt, pp.mg_omega, lvl.parity,
+                                       color, ctx))
+                checked.add(("sor_gc", (3, *shp), float(pp.mg_omega)))
+        else:
+            g, it, i1w = warp_and_derivatives(v0, v1, fl, pp, ctx,
+                                              emit_warped=gamma)
+            gc = grad_constancy_terms(v0, i1w, ctx, g=g) if gamma else None
+            t = compute_terms(g, it, fl, du, pp, ctx, gc=gc)
+            if pp.sweep_layout == "packed" and w % 2 == 0:
+                z0, dg = ctx.z0(dl), ctx.d_global(dl)
+                name = "sor_gc_packed" if gamma else "sor_packed"
+                kern_p, plain_p = ((k_sor_gc_packed,
+                                    sor_halfsweep_gc_packed_plain) if gamma
+                                   else (k_sor_packed,
+                                         sor_halfsweep_packed_plain))
+                mid, tail = ((t.c, t.ainv), ()) if gamma else (
+                    (t.c, t.g), (t.psi_d,))
+                for color in (0, 1):
+                    pk = lambda a, c: pack_color(a, c, z0)
+                    duo, pso = pk(du, 1 - color), pk(t.psi_s, 1 - color)
+                    args = (pk(du, color), duo,
+                            *(pk(a, color) for a in mid),
+                            pk(t.psi_s, color), pso,
+                            *(pk(a, color) for a in tail),
+                            *ctx.z_halo_planes(duo), *ctx.z_halo_planes(pso),
+                            z0, pp.alpha, pp.omega, color, dg)
+                    same(f"{name} {at} colour {color}", kern_p(*args),
+                         plain_p(*args))
+                checked.add((name, (3, dl, h, w // 2)))
+            else:
+                name = "sor_gc" if gamma else "sor_halfsweep"
+                parity = parity_mask((dl, h, w), ctx, dev)
+                for color in (0, 1):
+                    got = (k_sor_gc(du, t, (pp.alpha,) * 3, pp.omega, color,
+                                    ctx) if gamma else
+                           k_sor(du, t, pp.alpha, pp.omega, color, ctx))
+                    same(f"{name} {at} colour {color}", got,
+                         sor_halfsweep(du, t, pp.omega, parity, color, ctx))
+                checked.add((name, (3, dl, h, w), float(pp.omega)))
+        if pp.median:
+            x = torch.round(rand((3, dl, h, w), 4.0)) / 80.0
+            same(f"median3 {at}", k_median3(x, ctx), median3(x, ctx))
+            checked.add(("median3", (3, dl, h, w)))
+        del fl, du, t
+    torch.cuda.empty_cache()
+    log(f"{tag} {n_checked} sharded kernel-form cases over {len(pyr0)} "
+        f"levels: each bitwise equal to its plain version")
+    return checked, errs
+
+
+def shard_rank(rank, port, i0, i1, results) -> None:
+    """One of the ranks of phase 16 (spawned; both share cuda:0 through
+    gloo): for each path, hold its kernel forms (``shard_forms``), then run
+    ``compute_flow_sharded`` (SPMD) with every launched form recorded, and
+    report its flow slab, launch counts, wall time, device peak beside
+    ``memory.sharded_peak_bytes``, and the halo exchanges' count and time
+    on ``results``; a traceback in place of a report on failure."""
+    import torch
+    import torch.distributed as dist
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        from tpuflow3d_torch import distributed as tdist, grid, kernels
+        from tpuflow3d_torch.sharding import compute_flow_sharded
+        from tpuflow3d_torch.utils import memory as mem
+        z = tdist.initialize(f"127.0.0.1:{port}", SHARD_RANKS, rank,
+                             device=SHARD_DEVICE)
+        if z.backend != "gloo":
+            raise AssertionError(f"two ranks on one card took {z.backend}")
+        kernels.load_library()
+        dev = z.device
+        for path in SHARD_PATHS:
+            pp = shard_params(path)
+            ctx = grid.shard_ctx(z.group)
+            timings = {} if rank == 0 else None
+            checked, errs = shard_forms(torch, path, pp, i0, i1, ctx, dev,
+                                        timings)
+            forms = set()
+            dist.barrier()
+            kernels.reset_launches()
+            grid.COMM.reset()
+            with recording_forms(forms, sharded=True):
+                t0 = time.perf_counter()
+                flow, peak, base = device_peak(
+                    torch, dev, lambda: compute_flow_sharded(
+                        i0, i1, pp, devices=[SHARD_DEVICE] * SHARD_RANKS))
+                wall = time.perf_counter() - t0
+            missing = sorted(forms - checked, key=str)
+            if missing:
+                raise AssertionError(f"[shard:{path}] rank {rank}: kernel "
+                                     f"forms launched but not held against "
+                                     f"plain: {missing}")
+            results.put((rank, path, {
+                "flow": flow.cpu().numpy(), "seconds": wall,
+                "launches": dict(kernels.LAUNCHES),
+                "comm": grid.COMM.as_dict(), "forms": len(forms),
+                "halo_max_abs_err": errs,
+                "peak_bytes": peak, "base_bytes": base,
+                "model_bytes": mem.sharded_peak_bytes(SHAPE, pp,
+                                                      SHARD_RANKS),
+                "timings": timings or {}}))
+            del flow
+            torch.cuda.empty_cache()
+        tdist.shutdown()
+    except BaseException:
+        import traceback
+        results.put((rank, None, traceback.format_exc()))
+        results.close()
+        results.join_thread()
+        sys.stderr.flush()
+        os._exit(1)
+
+
+def shard_phase(torch, i0, i1, true, mask, launches, summary) -> None:
+    """Phase 16: the Z-sharded paths, two ranks sharing the card."""
+    import queue as queue_mod
+
+    import torch.multiprocessing as mp
+
+    from tpuflow3d_torch import compute_flow
+    from tpuflow3d_torch import synthetic as syn
+    from tpuflow3d_torch.sharding import compute_flow_sharded, free_port
+
+    dev = torch.device(SHARD_DEVICE)
+    card = gpu_name_and_power_limit()
+    res = summary["shard"] = {"card": card, "ranks": SHARD_RANKS,
+                              "transport": "gloo through host memory",
+                              "paths": {}}
+    # The one-device flows with the sharded runs' params (prepare_params:
+    # Z a multiple of 2, flow clamp 4 where the preset has none).
+    one = {}
+    for path in SHARD_PATHS:
+        pp = shard_params(path)
+        t0 = time.perf_counter()
+        f = compute_flow(i0, i1, pp, device=dev)
+        torch.cuda.synchronize(dev)
+        one[path] = (f.cpu().numpy(), time.perf_counter() - t0)
+        del f
+    torch.cuda.empty_cache()
+    log(f"[16:shard] {elapsed()} one-device flows of the {len(one)} paths "
+        f"with prepare_params(., {SHARD_RANKS})")
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = free_port()
+    t_spawn = time.perf_counter()
+    procs = [ctx.Process(target=shard_rank, args=(r, port, i0, i1, results),
+                         daemon=True) for r in range(SHARD_RANKS)]
+    for proc in procs:
+        proc.start()
+    got = {}
+    try:
+        while len(got) < SHARD_RANKS * len(SHARD_PATHS):
+            try:
+                rank, path, payload = results.get(timeout=5.0)
+            except queue_mod.Empty:
+                dead = [r for r, proc in enumerate(procs)
+                        if proc.exitcode not in (None, 0)]
+                if dead:
+                    raise AssertionError(f"[16:shard] rank {dead[0]} exited "
+                                         f"with {procs[dead[0]].exitcode}")
+                continue
+            if path is None:
+                raise AssertionError(f"[16:shard] rank {rank} failed:\n"
+                                     f"{payload}")
+            got[rank, path] = payload
+            if all((r, path) in got for r in range(SHARD_RANKS)):
+                shard_check(torch, path, [got[r, path]
+                                          for r in range(SHARD_RANKS)],
+                            one[path], true, mask, launches, res, card)
+                for r in range(SHARD_RANKS):
+                    got[r, path] = {"checked": True}
+    finally:
+        for proc in procs:
+            proc.join(timeout=60)
+            if proc.is_alive():
+                proc.terminate()
+    log(f"[16:shard] {elapsed()} the two ranks ran the {len(SHARD_PATHS)} "
+        f"paths in {time.perf_counter() - t_spawn:.1f} s, spawn included")
+
+    # The entry point called from one process: it spawns the two ranks
+    # itself and gathers the flow, which must be the SPMD run's bits.
+    pp = shard_params("ladder256")
+    t0 = time.perf_counter()
+    flow = compute_flow_sharded(i0, i1, pp,
+                                devices=[SHARD_DEVICE] * SHARD_RANKS)
+    wall = time.perf_counter() - t0
+    if not np.array_equal(flow.numpy(), res["paths"]["ladder256"].pop(
+            "_flow")):
+        raise AssertionError("[16:shard] compute_flow_sharded from one "
+                             "process differs from the SPMD run")
+    log(f"[16:shard] compute_flow_sharded(..., devices=['cuda:0', "
+        f"'cuda:0']) from one process: {wall:.2f} s with its spawn, bitwise "
+        f"the SPMD ladder256 flow")
+    res["single_process_entry_seconds"] = wall
+    for path in res["paths"]:
+        res["paths"][path].pop("_flow", None)
+    shard_cli(torch, i0, i1, flow.numpy(), res)
+
+
+def shard_check(torch, path, reports, one_device, true, mask, launches, res,
+                card) -> None:
+    """Parent side of phase 16 for one path: launch counts on each rank,
+    the gathered flow against the one-device flow (the JAX gate), the EPE,
+    each rank's device peak beside the model, the exchanges."""
+    from tpuflow3d_torch import synthetic as syn
+    tag = f"[16:shard:{path}]"
+    expected, epe_limit = SHARD_PATHS[path][2:]
+    for r, rep in enumerate(reports):
+        check_launches(f"{path} rank {r}", rep["launches"], expected)
+    launches[f"shard:{path}"] = {
+        k: sum(rep["launches"][k] for rep in reports)
+        for k in reports[0]["launches"]}
+    flow = np.concatenate([rep["flow"] for rep in reports], axis=1)
+    ref, t_one = one_device
+    if flow.shape != ref.shape or not np.isfinite(flow).all():
+        raise AssertionError(f"{tag} flow of shape {flow.shape} or "
+                             f"non-finite")
+    diff = np.abs(flow - ref)
+    atol, rtol = SHARD_GATE
+    bad = int((diff > atol + rtol * np.abs(ref)).sum())
+    e_shard = syn.epe(flow, true, mask)
+    e_one = syn.epe(ref, true, mask)
+    walls = [rep["seconds"] for rep in reports]
+    comm = [rep["comm"] for rep in reports]
+    log(f"{tag} two ranks sharing one {card}, gloo through host: wall "
+        f"{max(walls):.2f} s (ranks {', '.join(f'{w:.2f}' for w in walls)}; "
+        f"one device {t_one:.2f} s); launches per rank "
+        f"{reports[0]['launches']}; {reports[0]['forms']} kernel forms, "
+        f"every one held bitwise")
+    for r, c in enumerate(comm):
+        log(f"{tag} rank {r}: {c['exchanges']} halo exchanges, "
+            f"{c['gathers']} all-gathers, {c['reductions']} reductions, "
+            f"{c['bytes_sent'] / 2 ** 20:.1f} MiB sent, {c['seconds']:.2f} s "
+            f"in them")
+    log(f"{tag} max |sharded - one device| {float(diff.max()):.3e}, {bad} "
+        f"voxels past atol {atol} rtol {rtol}; EPE sharded {e_shard:.6f}, "
+        f"one device {e_one:.6f} (limit {epe_limit})")
+    for r, rep in enumerate(reports):
+        log(f"[mem] shard:{path} rank {r}: device peak "
+            f"{rep['peak_bytes'] / 2 ** 30:.3f} GiB (beyond "
+            f"{rep['base_bytes'] / 2 ** 30:.3f} GiB allocated before), model "
+            f"{rep['model_bytes'] / 2 ** 30:.3f} GiB, model/peak "
+            f"{rep['model_bytes'] / rep['peak_bytes']:.3f}")
+    res["paths"][path] = {
+        "max_abs_diff_vs_one_device": float(diff.max()), "epe": e_shard,
+        "epe_one_device": e_one, "seconds_by_rank": walls,
+        "one_device_seconds": t_one, "comm_by_rank": comm,
+        "peak_bytes_by_rank": [rep["peak_bytes"] for rep in reports],
+        "model_bytes": reports[0]["model_bytes"],
+        "forms": reports[0]["forms"], "timings": reports[0]["timings"],
+        "halo_max_abs_err": {
+            k: max(rep["halo_max_abs_err"][k] for rep in reports)
+            for k in reports[0]["halo_max_abs_err"]}}
+    if path == "ladder256":
+        res["paths"][path]["_flow"] = flow
+    if bad:
+        raise AssertionError(f"{tag} sharded and one-device flows disagree")
+    if not max(e_shard, e_one) < epe_limit:
+        raise AssertionError(f"{tag} EPE {e_shard} (one device {e_one}), "
+                             f"limit {epe_limit}")
+    for r, rep in enumerate(reports):
+        if rep["model_bytes"] < rep["peak_bytes"]:
+            raise AssertionError(f"{tag} rank {r}: memory.sharded_peak_bytes "
+                                 f"{rep['model_bytes']} below the measured "
+                                 f"peak {rep['peak_bytes']}")
+
+
+def shard_cli(torch, i0, i1, sharded, res) -> None:
+    """Phase 16's command line: two ``python -m tpuflow3d_torch.cli
+    --distributed`` processes on the card (host-local slab IO) at 256^3
+    with ``ladder256``, bitwise the sharded flow; then the same with a
+    checkpoint directory and rank 1 killed at the first level checkpoint:
+    the survivor must exit non-zero within FAULT_BOUND_S, and a relaunch
+    resumes to the same bits."""
+    import tempfile
+
+    from tpuflow3d_torch import checkpoint as ckpt
+    from tpuflow3d_torch import volume as vio
+    from tpuflow3d_torch.sharding import free_port
+
+    tag = "[16:shard:cli]"
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    out_res = res["cli"] = {}
+
+    def launch(f0, f1, out, ck=None, die=False):
+        port = free_port()
+        procs = []
+        for r in range(SHARD_RANKS):
+            head = ([sys.executable, "-c", DIE_AT_FIRST_CHECKPOINT]
+                    if die and r == 1 else
+                    [sys.executable, "-m", "tpuflow3d_torch.cli"])
+            argv = head + ["--distributed", "--coordinator",
+                           f"127.0.0.1:{port}", "--num-processes",
+                           str(SHARD_RANKS), "--process-id", str(r),
+                           "--frame0", f0, "--frame1", f1, "--out", out,
+                           "--preset", "ladder256"]
+            if ck is not None:
+                argv += ["--checkpoint-dir", ck]
+            procs.append(subprocess.Popen(argv, env=env,
+                                          stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT,
+                                          text=True))
+        return procs
+
+    def wait(procs, timeout):
+        """Exit codes and the seconds at which each process ended; kills
+        what is still running at the timeout."""
+        t0 = time.perf_counter()
+        ended = [None] * len(procs)
+        while None in ended and time.perf_counter() - t0 < timeout:
+            for i, proc in enumerate(procs):
+                if ended[i] is None and proc.poll() is not None:
+                    ended[i] = time.perf_counter() - t0
+            time.sleep(0.05)
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+        outs = [proc.communicate()[0] for proc in procs]
+        return [proc.returncode for proc in procs], ended, outs
+
+    def read_flow(prefix):
+        meta = vio.VolumeMeta(SHAPE, "float32")
+        return np.stack([vio.read_raw(f"{prefix}{c}.raw", meta)
+                         for c in "wvu"])
+
+    with tempfile.TemporaryDirectory(prefix="tf3d_dist.") as tmp:
+        f0, f1 = (os.path.join(tmp, name) for name in ("a.raw", "b.raw"))
+        vio.write_raw(f0, i0.astype(np.float32))
+        vio.write_raw(f1, i1.astype(np.float32))
+
+        out = os.path.join(tmp, "dist_")
+        rcs, ended, outs = wait(launch(f0, f1, out), 600)
+        if rcs != [0] * SHARD_RANKS:
+            raise AssertionError(f"{tag} exit codes {rcs}:\n" + "\n".join(
+                o[-3000:] for o in outs))
+        if not np.array_equal(read_flow(out), sharded):
+            raise AssertionError(f"{tag} the --distributed flow differs from "
+                                 f"compute_flow_sharded's")
+        log(f"{tag} {SHARD_RANKS} processes of --distributed on the card: "
+            f"{max(ended):.1f} s each with its start, u/v/w bitwise the "
+            f"sharded flow")
+        out_res["seconds"] = max(ended)
+
+        ck = os.path.join(tmp, "ck")
+        out2 = os.path.join(tmp, "fault_")
+        rcs, ended, outs = wait(launch(f0, f1, out2, ck, die=True),
+                                600 + FAULT_BOUND_S)
+        state = ckpt.peek_level_checkpoint(ck)
+        detect = (ended[0] - ended[1]) if None not in ended else None
+        log(f"{tag} rank 1 killed at the first level checkpoint "
+            f"({state}): exit codes {rcs}; the survivor exited "
+            f"{detect if detect is None else f'{detect:.2f}'} s after it")
+        if rcs[1] != 17 or rcs[0] in (0, None) or detect is None \
+                or detect > FAULT_BOUND_S or state is None:
+            raise AssertionError(f"{tag} the killed rank was not detected "
+                                 f"within {FAULT_BOUND_S} s:\n" + "\n".join(
+                                     o[-3000:] for o in outs))
+        out_res["survivor_exit_after_kill_seconds"] = detect
+        out_res["checkpoint_at_kill"] = list(state[0]) + [state[1]]
+
+        rcs, ended, outs = wait(launch(f0, f1, out2, ck), 600)
+        if rcs != [0] * SHARD_RANKS:
+            raise AssertionError(f"{tag} relaunch exit codes {rcs}:\n"
+                                 + "\n".join(o[-3000:] for o in outs))
+        if not np.array_equal(read_flow(out2), sharded):
+            raise AssertionError(f"{tag} the resumed flow differs from the "
+                                 f"uninterrupted one")
+        log(f"{tag} relaunched: resumed from level {state[1]} in "
+            f"{max(ended):.1f} s, u/v/w bitwise the uninterrupted flow")
+        out_res["resume_seconds"] = max(ended)
+
+
 def main() -> None:
     if not (ROOT / "src" / "tpuflow3d_torch" / "__init__.py").is_file():
         raise SystemExit("chip_smoke.py: src/tpuflow3d_torch not found next "
@@ -1772,18 +2366,51 @@ def main() -> None:
     log("[cli] " + json.dumps(summary.pop("cli")))
     log("[mem] " + json.dumps(summary.pop("memory")))
 
+    # 16. The Z-sharded paths, two ranks sharing the card.
+    shard_phase(torch, i0, i1, true, mask, launches, summary)
+    shard = summary.pop("shard")
+    log("[shard] " + json.dumps(shard))
+
+    def halo_entry(name):
+        """K2/K5 in halo form: its launches on the sharded paths (both
+        ranks), the largest |kernel - plain| the ranks measured on those
+        paths, its time (the kernel alone on the card), the plain
+        version's and the bound, from the first path that timed it."""
+        timed = [t for p in shard["paths"].values()
+                 for key, t in p["timings"].items()
+                 if key.startswith(f"{name}/halo")]
+        runs = {p: n[name] for p, n in launches.items()
+                if p.startswith("shard:")}
+        return {"name": f"{name} (halo form)", "route": "cuda",
+                "source": SOURCES[name][0], "replaces": SOURCES[name][1],
+                "launches": sum(runs.values()), "launches_by_path": runs,
+                "library_ms": None,
+                "max_abs_err": max(p["halo_max_abs_err"][name]
+                                   for p in shard["paths"].values()
+                                   if name in p["halo_max_abs_err"]),
+                **{k: timed[0][k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "wrapper_ms",
+                                            "slab", "halo_planes")},
+                "timed": timed}
+
     log(card)
+    warps = ("warp_grad", "warp_grad_tricubic")
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],
          **({"entry_source": SOURCES[name][2]} if len(SOURCES[name]) > 2
             else {}),
-         "launches": sum(n[name] for n in launches.values()),
-         "launches_by_path": {path: n[name] for path, n in launches.items()},
+         # K2/K5's sharded launches are their halo form's (below).
+         "launches": sum(n[name] for p, n in launches.items()
+                         if not (name in warps and p.startswith("shard:"))),
+         "launches_by_path": {
+             path: n[name] for path, n in launches.items()
+             if not (name in warps and path.startswith("shard:"))},
          # No single PyTorch call computes a red-black half-sweep, the fused
          # warp + derivatives or a 27-point median.
          "library_ms": None,
-         **summary[name]} for name in SOURCES]}))
+         **summary[name]} for name in SOURCES]
+        + [halo_entry(name) for name in warps]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -9,12 +9,16 @@ the plain versions of the kernels on the CPU.
 
 The path is in-core (``pipeline.compute_flow``) unless the in-core peak
 that ``utils.memory`` models for the run passes the device's budget, or
-the volume passes a kernel's 32-bit index limits: then it is the
-out-of-core mode (``piecewise.compute_flow_piecewise``), with a Z-chunk
-from ``memory.pick_chunk_z``. ``--incore`` and ``--piecewise`` pin it.
-The flags of the reference's Z-sharded and multi-process paths are
-accepted and exit 2: those paths need more than one GPU and are not
-ported yet (ROADMAP queue 1, items 10 and 13).
+the volume passes a kernel's 32-bit index limits: then it is Z-sharded
+over the GPUs where there are several and a rank's slab fits
+(``sharding.compute_flow_sharded``, ``memory.sharded_peak_bytes``), else
+the out-of-core mode (``piecewise.compute_flow_piecewise``), with a
+Z-chunk from ``memory.pick_chunk_z``. ``--incore``, ``--piecewise`` and
+``--sharded`` (one rank per GPU, ``--devices N`` of them; more than there
+are exits 2) pin it. ``--distributed`` is the multi-process path: every
+process runs this command with ``--coordinator``, ``--num-processes`` and
+``--process-id`` (or torchrun's environment), reads and writes only its
+own Z slab of the raw files (``distributed.compute_flow_distributed``).
 
 Example:
     python -m tpuflow3d_torch.cli --frame0 a.raw --frame1 b.raw \
@@ -26,6 +30,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -38,9 +43,6 @@ from tpuflow3d_torch.params import _REFERENCE_BACKENDS, PRESETS, FlowParams
 from tpuflow3d_torch.utils.logging import JsonlLogger, summarize_residuals
 
 PROG = "tpuflow3d-torch"
-# The flags of the reference's Z-sharded and multi-process paths.
-_MULTI_DEVICE_FLAGS = ("sharded", "devices", "distributed", "coordinator",
-                       "num_processes", "process_id")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -117,20 +119,25 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-median", action="store_true")
     ap.add_argument("--solver", choices=["sor", "jacobi", "multigrid"],
                     default=None)
-    multi = ("not ported: needs more than one GPU (ROADMAP queue 1, items "
-             "10 and 13); exits 2")
     ap.add_argument("--sharded", action="store_true",
-                    help=f"Z-shard across all visible devices ({multi})")
+                    help="Z-shard across all visible GPUs, one rank each "
+                         "(with --platform cpu: --devices ranks on the CPU)")
     ap.add_argument("--devices", type=int, default=None,
-                    help=f"number of devices for --sharded ({multi})")
+                    help="number of devices for --sharded (more than are "
+                         "visible exits 2)")
     ap.add_argument("--distributed", action="store_true",
-                    help=f"multi-process run ({multi})")
+                    help="multi-process run: torch.distributed bring-up, "
+                         "host-local slab IO, Z-sharded solve over every "
+                         "process (NCCL when each process has a GPU of its "
+                         "own, gloo otherwise)")
     ap.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                    help=f"coordinator address for --distributed ({multi})")
+                    help="rank 0's address for --distributed (omit all three "
+                         "under torchrun)")
     ap.add_argument("--num-processes", type=int, default=None,
-                    help=f"process count for --distributed ({multi})")
+                    help="process count for --distributed manual launches")
     ap.add_argument("--process-id", type=int, default=None,
-                    help=f"this process's id for --distributed ({multi})")
+                    help="this process's id for --distributed manual "
+                         "launches")
     ap.add_argument("--piecewise", action="store_true",
                     help="out-of-core: stream Z-chunks through one device "
                          "(for volumes larger than device memory, or past "
@@ -213,15 +220,25 @@ def _device(args) -> torch.device:
         raise ValueError(f"{e} (here: --platform cpu)") from None
 
 
-def _reject_multi_device(args) -> None:
-    given = [f"--{name.replace('_', '-')}" for name in _MULTI_DEVICE_FLAGS
-             if getattr(args, name) is not None
-             and getattr(args, name) is not False]
-    if given:
-        raise ValueError(
-            f"{' and '.join(given)}: the Z-sharded and multi-process paths "
-            "need more than one GPU and are not ported yet (ROADMAP queue "
-            "1, items 10 and 13); run on one GPU (in-core or --piecewise)")
+def _sharded_devices(args, dev) -> list[str]:
+    """The devices of --sharded, one rank each: the first --devices GPUs
+    (all of them by default), or --devices ranks on the CPU with
+    --platform cpu (one by default). More than are visible (GPUs, or
+    the CPU cores this process may use) raises ValueError (exit 2): a card
+    is never shared without being asked for (``compute_flow_sharded``'s
+    ``devices`` list can)."""
+    if dev.type == "cpu":
+        have, what = len(os.sched_getaffinity(0)), "CPU cores"
+    else:
+        have, what = torch.cuda.device_count(), "GPUs"
+    n = args.devices if args.devices is not None else (
+        have if dev.type == "cuda" else 1)
+    if n < 1 or n > have:
+        raise ValueError(f"--sharded --devices {n}: {have} {what} visible "
+                         "(ranks share a GPU only where the devices list of "
+                         "sharding.compute_flow_sharded names it twice)")
+    return ["cpu"] * n if dev.type == "cpu" else [f"cuda:{i}"
+                                                  for i in range(n)]
 
 
 def _load(path: str, dims, dtype) -> np.ndarray:
@@ -293,7 +310,6 @@ def main(argv=None) -> int:
                 raise ValueError(
                     f"--apply-flow is a standalone post-processing mode; "
                     f"it cannot be combined with {' or '.join(conflicts)}")
-            _reject_multi_device(args)
             return _apply_flow(args)
         except (ValueError, OSError) as e:
             if args.traceback:
@@ -348,7 +364,6 @@ def _check_path_flags(args) -> None:
             "--check-consistency supports the single-pair paths only "
             "(solve each direction explicitly for series/distributed "
             "runs and use tpuflow3d_torch.postproc.consistency_error)")
-    _reject_multi_device(args)
 
 
 def _parse_derived(args) -> tuple:
@@ -386,12 +401,15 @@ def _write_derived(args, log, prefix: str, flow) -> None:
 
 
 def _auto_mode(args, shape, params, log, dev) -> None:
-    """Choose in-core or piecewise (the reference's main() picks entire-data
-    or piecewise by free GPU memory): piecewise where the in-core peak
-    modelled for this run passes the device's budget, or where the volume
-    passes a kernel's 32-bit index limits (on the GPU), which raise
-    in-core. --incore/--piecewise pin the path."""
-    if args.incore or args.piecewise:
+    """Choose in-core, sharded or piecewise (the reference's main() picks
+    entire-data or piecewise by free GPU memory): where the in-core peak
+    modelled for this run passes the device's budget, or the volume passes
+    a kernel's 32-bit index limits (on the GPU), which raise in-core, the
+    run is sharded over the GPUs when there are several and a rank's slab
+    fits (its modelled peak within the budget, its arrays within the
+    limits), else piecewise. --incore/--piecewise/--sharded/--distributed
+    pin the path."""
+    if args.incore or args.piecewise or args.sharded or args.distributed:
         return
     from tpuflow3d_torch.utils import memory as mem
 
@@ -403,11 +421,17 @@ def _auto_mode(args, shape, params, log, dev) -> None:
                    and not mem.incore_fits_index_limits(shape, params))
     if need <= budget and not past_limits:
         return
-    args.piecewise = True
-    mode = (f"piecewise (chunk_z={args.chunk_z})"
-            if args.chunk_z is not None else "piecewise (auto chunk)")
-    log.log("auto_mode", selected="piecewise", need_bytes=need,
-            device_budget_bytes=budget, devices=1)
+    n = torch.cuda.device_count() if dev.type == "cuda" else 1
+    if n > 1 and mem.sharded_peak_bytes(shape, params, n) <= budget \
+            and mem.sharded_fits_index_limits(shape, params, n):
+        args.sharded = True
+        mode = f"sharded over {n} devices"
+    else:
+        args.piecewise = True
+        mode = (f"piecewise (chunk_z={args.chunk_z})"
+                if args.chunk_z is not None else "piecewise (auto chunk)")
+    log.log("auto_mode", selected="sharded" if args.sharded else "piecewise",
+            need_bytes=need, device_budget_bytes=budget, devices=n)
 
     def gib(b):
         return (f"{b / 2**30:.1f} GiB" if b >= 2**29
@@ -417,7 +441,78 @@ def _auto_mode(args, shape, params, log, dev) -> None:
            if need > budget else
            f"{tuple(shape)} passes the kernels' 32-bit index limits in-core")
     print(f"{PROG}: note: {why}; selected {mode} (pin a path with "
-          "--incore/--piecewise)", file=sys.stderr)
+          "--incore/--piecewise/--sharded)", file=sys.stderr)
+
+
+def _distributed_setup(args, log, first_frame: str):
+    """The --distributed bring-up: ``distributed.initialize`` (its device:
+    the CPU with --platform cpu, else a GPU), the volume meta (float32:
+    the slabs are read straight from the raw files). Returns
+    (distributed module, meta, Z group)."""
+    if args.timings:
+        print(f"{PROG}: note: --timings is not supported with "
+              "--distributed (phase timers are per-process); ignoring",
+              file=sys.stderr)
+    given = [args.coordinator, args.num_processes, args.process_id]
+    if any(v is not None for v in given) and None in given:
+        raise ValueError("--distributed: --coordinator, --num-processes and "
+                         "--process-id go together (or none of them, under "
+                         "torchrun)")
+    from tpuflow3d_torch import distributed as tdist
+
+    z = tdist.initialize(args.coordinator, args.num_processes,
+                         args.process_id,
+                         device="cpu" if args.platform == "cpu" else None)
+    log.log("distributed", process=z.rank, n_processes=z.size,
+            n_devices=z.size, device=str(z.device), backend=z.backend)
+    if args.dims is not None:
+        meta = vio.VolumeMeta(tuple(args.dims), args.dtype or "float32")
+    else:
+        meta = vio.read_sidecar(first_frame)
+        if meta is None:
+            raise ValueError(f"--distributed needs --dims or a .json "
+                             f"sidecar for {first_frame}")
+    if meta.dtype != "float32":
+        raise ValueError("--distributed reads slabs directly from the raw "
+                         "files; convert inputs to float32 first "
+                         "(non-f32 widening happens in-memory otherwise)")
+    return tdist, meta, z
+
+
+def _run_distributed(args, params, log) -> int:
+    """The multi-process entry: each process solves its Z slab and writes
+    its planes of u/v/w."""
+    tdist, meta, z = _distributed_setup(args, log, args.frame0)
+    try:
+        params = _notice_flow_clamp(params, z.size, log)
+        t0 = time.perf_counter()
+        flow = tdist.compute_flow_distributed(
+            args.frame0, args.frame1, meta, params, z, out_prefix=args.out,
+            checkpoint_dir=args.checkpoint_dir)
+        if flow.device.type == "cuda":
+            torch.cuda.synchronize(flow.device)
+        dt = time.perf_counter() - t0
+        voxels = float(np.prod(meta.shape))
+        log.log("done", seconds=dt, voxels_per_s=voxels / dt,
+                process=z.rank)
+        log.log("written", prefix=args.out, note="u/v/w slabs per process")
+    finally:
+        tdist.shutdown()
+    return 0
+
+
+def _notice_flow_clamp(params, n, log):
+    from tpuflow3d_torch.sharding import DEFAULT_FLOW_CLAMP, prepare_params
+    pp = prepare_params(params, n)
+    if params.flow_clamp <= 0.0 and pp.flow_clamp == DEFAULT_FLOW_CLAMP:
+        log.log("notice", flow_clamp=pp.flow_clamp,
+                message=f"sharded run defaulted flow_clamp to "
+                        f"{pp.flow_clamp} (bounds the warp halo); raise "
+                        "--flow-clamp if per-level motion exceeds it")
+        print(f"{PROG}: note: sharded run caps per-level flow at "
+              f"{pp.flow_clamp} voxels (warp halo bound); pass "
+              "--flow-clamp to raise", file=sys.stderr)
+    return pp
 
 
 def _solve_pair(args, params, i0, i1, log, timer, checkpoint_dir, dev):
@@ -437,6 +532,18 @@ def _solve_pair(args, params, i0, i1, log, timer, checkpoint_dir, dev):
                                       checkpoint_dir=checkpoint_dir,
                                       timer=timer, device=dev)
         return flow, {}
+    if args.sharded:
+        from tpuflow3d_torch.sharding import compute_flow_sharded
+        devices = _sharded_devices(args, dev)
+        n = len(devices)
+        pp = _notice_flow_clamp(params, n, log)
+        out = compute_flow_sharded(vio.pad_to_multiple(i0, n),
+                                   vio.pad_to_multiple(i1, n), pp,
+                                   devices=devices, diagnostics=diagnostics,
+                                   checkpoint_dir=checkpoint_dir, timer=timer)
+        flow, diag = out if diagnostics else (out, {})
+        return (flow[:, :i0.shape[0]].numpy(),
+                {k: v.numpy() for k, v in diag.items()})
     if checkpoint_dir or timer is not None:
         from tpuflow3d_torch.pipeline import compute_flow_checkpointed
         flow = compute_flow_checkpointed(i0, i1, params,
@@ -513,10 +620,45 @@ def _pair_diagnostics(args, log, params, i0, i1, flow, dev,
         _log_stats(log, arrays, dev, device=not args.piecewise, **extra)
 
 
+def _run_sequence_distributed(args, params, log) -> int:
+    """Time-series mode over the processes: each consecutive pair runs the
+    host-local-IO sharded solve, with a checkpoint directory per pair."""
+    tdist, meta, z = _distributed_setup(args, log, args.frames[0])
+    try:
+        params = _notice_flow_clamp(params, z.size, log)
+        voxels = float(np.prod(meta.shape))
+        for t in range(len(args.frames) - 1):
+            ck = (f"{args.checkpoint_dir.rstrip('/')}/pair{t:04d}"
+                  if args.checkpoint_dir else None)
+            prefix = f"{args.out}{t:04d}_"
+            t0 = time.perf_counter()
+            flow = tdist.compute_flow_distributed(
+                args.frames[t], args.frames[t + 1], meta, params, z,
+                out_prefix=prefix, checkpoint_dir=ck)
+            if flow.device.type == "cuda":
+                torch.cuda.synchronize(flow.device)
+            dt = time.perf_counter() - t0
+            log.log("pair_done", t=t, frame0=args.frames[t],
+                    frame1=args.frames[t + 1], seconds=dt,
+                    voxels_per_s=voxels / dt, prefix=prefix, process=z.rank)
+            if z.rank == 0:
+                print(f"{PROG}: pair {t} ({dt:.2f}s) -> {prefix}",
+                      file=sys.stderr)
+    finally:
+        tdist.shutdown()
+    return 0
+
+
 def _run_sequence(args, params, log, dev) -> int:
     """Time-series mode: consecutive-pair flows over N frames."""
     if len(args.frames) < 2:
         raise ValueError("--frames needs at least 2 volumes")
+    if args.distributed:
+        if args.track:
+            raise ValueError(
+                "--track needs the assembled global flow; run it on the "
+                "written flows afterwards (tpuflow3d_torch.postproc)")
+        return _run_sequence_distributed(args, params, log)
     tracks = None
     if args.track:
         from tpuflow3d_torch import postproc
@@ -603,8 +745,12 @@ def _run(args) -> int:
             frames=args.frames)
     _check_path_flags(args)
 
+    if args.sharded:
+        _sharded_devices(args, dev)  # too many --devices: exit 2 now
     if args.frames:
         return _run_sequence(args, params, log, dev)
+    if args.distributed:
+        return _run_distributed(args, params, log)
 
     i0 = _load(args.frame0, args.dims, args.dtype)
     i1 = _load(args.frame1, args.dims, args.dtype)

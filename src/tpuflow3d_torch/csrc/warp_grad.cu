@@ -21,6 +21,18 @@
 // With z0 = 0 and dg = D the outer clip changes nothing, so the one-device
 // call is the window form with the whole volume as its slab.
 //
+// Halo form (a Z shard: planes z0 .. z0+D-1 of a volume of dg): I1 comes
+// padded by ip planes a side, flow and i0 by one, each pad holding the
+// neighbouring shards' planes on an interior face and edge replicas on a
+// global one (the TPU kernel's layout, pallas/warp_grad.py:321-342: ip =
+// ceil(max_disp) + 2, + 3 for tricubic). Every sample plane, those beyond
+// an interior face included (the derivatives' z-1 and z+D, the
+// neighbour's own planes: its flow and i0 from the pad), is sampled at
+// global coordinates, clip(z0 + z + s_z, 0, dg-1), its floor shifted by
+// the integer ip - z0 into the padded slab: the one-device arithmetic,
+// so a shard gives the one-device bits (as the plain sharded warp does).
+// With |s_z| <= max_disp no tap reaches past the pad.
+//
 // The TPU kernel needs a bounded displacement (a select-interpolate over
 // statically shifted slabs, clamp <= 2); a CUDA gather has no such bound,
 // so this kernel serves any flow. Coordinate maths is float32, as in the
@@ -140,11 +152,13 @@ struct Taps {
   }
 };
 
+// zsh shifts the floor of cz into I1's planes (the halo form's global
+// coordinates into the padded slab; 0 otherwise).
 template <bool kCubic, bool kClamp>
 __device__ __forceinline__ float interp(const Taps<kClamp>& t, float cz,
-                                        float cy, float cx) {
+                                        float cy, float cx, int zsh) {
   const float fz0 = floorf(cz), fy0 = floorf(cy), fx0 = floorf(cx);
-  const int z0 = (int)fz0, y0 = (int)fy0, x0 = (int)fx0;
+  const int z0 = (int)fz0 + zsh, y0 = (int)fy0, x0 = (int)fx0;
   if constexpr (kCubic) {
     float wz[4], wy[4], wx[4];
     cubic_weights(cz - fz0, wz);
@@ -190,7 +204,7 @@ __global__ void __launch_bounds__(kThreads,
     const float* __restrict__ i1, const float* __restrict__ flow,
     const float* __restrict__ i0, float* __restrict__ g,
     float* __restrict__ it, float* __restrict__ i1w, int D, int H, int W,
-    int z0g, int dg, int zchunk, int box_floats, int vec_rows,
+    int z0g, int dg, int ip, int zchunk, int box_floats, int vec_rows,
     int* __restrict__ tiles) {
   extern __shared__ float4 s_dyn[];
   float* s_bar = reinterpret_cast<float*>(s_dyn);  // [kRing][kEY][kEX]
@@ -202,8 +216,22 @@ __global__ void __launch_bounds__(kThreads,
   const int bx = blockIdx.x * kTX, by = blockIdx.y * kTY;
   const int z0 = blockIdx.z * zchunk, zend = min(z0 + zchunk, D);
   const int N = D * H * W;
+  // The halo form (ip > 0): flow and i0 padded by one plane (fp), I1 by ip
+  // (its last plane zmax; global plane g is its plane g + zsh),
+  // neighbours beyond the faces that are interior.
+  const bool halo = ip > 0;
+  const int fp = halo ? 1 : 0, Nf = (D + 2 * fp) * H * W;
+  const int zmax = D + 2 * ip - 1, zsh = halo ? ip - z0g : 0;
+  const bool nb_lo = halo && z0g > 0, nb_hi = halo && z0g + D < dg;
   // The true volume's Z range in the slab's frame.
   const float zlo = (float)(-z0g), zhi = (float)(dg - 1 - z0g);
+  // Sample plane zl (-1 .. D) -> the flow/i0 plane it reads (unpadded
+  // index): itself beyond an interior face, else the nearest slab plane
+  // (a replica beyond a global face or a window's).
+  auto plane = [&](int zl) {
+    return (nb_lo && zl < 0) || (nb_hi && zl >= D) ? zl
+                                                   : min(max(zl, 0), D - 1);
+  };
   if (tid < 12) s_red[tid / 6][tid % 6] = tid % 6 < 3 ? INT_MAX : INT_MIN;
   __syncthreads();
 
@@ -223,14 +251,18 @@ __global__ void __launch_bounds__(kThreads,
       const int pz = e / kPlanePts, r = e - pz * kPlanePts;
       if (e < kSlabPts && a + pz <= zend) {
         const int ey = r / kEX, ex = r - ey * kEX;
-        const int z = min(max(a + pz, 0), D - 1);
+        const int z = plane(a + pz);
         const int y = min(max(by + ey - 1, 0), H - 1);
         const int x = min(max(bx + ex - 1, 0), W - 1);
-        const int v = (z * H + y) * W + x;
-        cz[i] = fminf(fmaxf(fminf(fmaxf((float)z + flow[v], zlo), zhi), 0.f),
-                      (float)(D - 1));
-        cy[i] = fminf(fmaxf((float)y + flow[N + v], 0.f), (float)(H - 1));
-        cx[i] = fminf(fmaxf((float)x + flow[2 * N + v], 0.f), (float)(W - 1));
+        const int v = ((z + fp) * H + y) * W + x;
+        cz[i] = halo ? fminf(fmaxf((float)(z0g + z) + flow[v], 0.f),
+                             (float)(dg - 1))
+                     : fminf(fmaxf(fminf(fmaxf((float)z + flow[v], zlo), zhi),
+                                   0.f),
+                             (float)(D - 1));
+        cy[i] = fminf(fmaxf((float)y + flow[Nf + v], 0.f), (float)(H - 1));
+        cx[i] = fminf(fmaxf((float)x + flow[2 * Nf + v], 0.f),
+                      (float)(W - 1));
         i0v[i] = i0[v];
       }
     }
@@ -249,7 +281,7 @@ __global__ void __launch_bounds__(kThreads,
       for (int i = 0; i < kPts; ++i) {
         const int e = tid + i * kThreads;
         if (e < kSlabPts && a + e / kPlanePts <= zend) {
-          const int f[3] = {(int)floorf(cz[i]), (int)floorf(cy[i]),
+          const int f[3] = {(int)floorf(cz[i]) + zsh, (int)floorf(cy[i]),
                             (int)floorf(cx[i])};
 #pragma unroll
           for (int k = 0; k < 3; ++k) {
@@ -287,7 +319,7 @@ __global__ void __launch_bounds__(kThreads,
         for (int e = tid; e < nz * ny * nx4; e += kThreads) {
           const int row = e / nx4, k = e - row * nx4;
           const int kz = row / ny, ky = row - kz * ny;
-          const float* src = i1 + (min(max(bz0 + kz, 0), D - 1) * H +
+          const float* src = i1 + (min(max(bz0 + kz, 0), zmax) * H +
                                    min(max(by0 + ky, 0), H - 1)) * W;
           const int gx = bx0 + 4 * k;
           float* dst = s_box + 4 * e;
@@ -314,7 +346,7 @@ __global__ void __launch_bounds__(kThreads,
         const int e = tid + i * kThreads;
         const int pz = e / kPlanePts, r = e - pz * kPlanePts;
         if (e < kSlabPts && a + pz <= zend) {
-          const float w = interp<kCubic>(taps, cz[i], cy[i], cx[i]);
+          const float w = interp<kCubic>(taps, cz[i], cy[i], cx[i], zsh);
           s_bar[((a + pz - z0 + 1) & (kRing - 1)) * kPlanePts + r] =
               0.5f * (i0v[i] + w);
           const int ey = r / kEX, ex = r - ey * kEX;
@@ -331,7 +363,7 @@ __global__ void __launch_bounds__(kThreads,
     if (staged) {
       sample(box);
     } else {
-      sample(Taps<true>{i1, 0, 0, 0, H, W, D - 1, H - 1, W - 1});
+      sample(Taps<true>{i1, 0, 0, 0, H, W, zmax, H - 1, W - 1});
     }
     __syncthreads();
 
@@ -362,7 +394,7 @@ __global__ void __launch_bounds__(kThreads,
 template <bool kCubic>
 int launch(const float* i1, const float* flow, const float* i0, float* g,
            float* it, float* i1w, int D, int H, int W, int z0, int dg,
-           bool staged, int* tiles, cudaStream_t stream) {
+           int ip, bool staged, int* tiles, cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(
       warp_grad_kernel<kCubic>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmemBytes<kCubic>);
@@ -378,7 +410,7 @@ int launch(const float* i1, const float* flow, const float* i0, float* g,
                   (D + zchunk - 1) / zchunk);
   warp_grad_kernel<kCubic><<<grid, dim3(kTX, kTY / kRowsPerThread),
                              kSmemBytes<kCubic>, stream>>>(
-      i1, flow, i0, g, it, i1w, D, H, W, z0, dg, zchunk,
+      i1, flow, i0, g, it, i1w, D, H, W, z0, dg, ip, zchunk,
       staged ? kBoxFloats<kCubic> : 0, vec_rows, tiles);
   return (int)cudaGetLastError();
 }
@@ -388,18 +420,19 @@ int launch(const float* i1, const float* flow, const float* i0, float* g,
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 // i1w may be null (no warped volume wanted); cubic != 0 selects K5. z0 and
 // dg place the volume as a window of a larger one (see above): 0 and D for
-// the whole volume.
+// the whole volume. ip > 0 selects the halo form of a Z shard (above): i1
+// then holds D + 2*ip planes, flow and i0 D + 2.
 // staged == 0 sends every slab to the device-memory gathers; tiles, when
 // not null, is a device int[2] to which each slab adds one: [0] staged,
 // [1] gathered from device memory.
 extern "C" int tf3d_warp_grad(const float* i1, const float* flow,
                               const float* i0, float* g, float* it,
                               float* i1w, int D, int H, int W, int z0,
-                              int dg, int cubic, int staged, int* tiles,
-                              void* stream) {
+                              int dg, int ip, int cubic, int staged,
+                              int* tiles, void* stream) {
   if ((long long)D * H * W == 0) return 0;
-  return cubic ? launch<true>(i1, flow, i0, g, it, i1w, D, H, W, z0, dg,
+  return cubic ? launch<true>(i1, flow, i0, g, it, i1w, D, H, W, z0, dg, ip,
                               staged != 0, tiles, (cudaStream_t)stream)
                : launch<false>(i1, flow, i0, g, it, i1w, D, H, W, z0, dg,
-                               staged != 0, tiles, (cudaStream_t)stream);
+                               ip, staged != 0, tiles, (cudaStream_t)stream);
 }

@@ -15,7 +15,8 @@ point that launches its kernel on a given stream and returns
 - ``sor_gc_packed.cu`` K7, K6 on colour-packed arrays
   (``kernels/sor_gc_packed.py``);
 - ``warp_grad.cu`` K2 (trilinear) and K5 (tricubic), the fused warp +
-  derivatives (``kernels/warp_grad.py``);
+  derivatives (``kernels/warp_grad.py``), on a whole volume, a streamed
+  window or, in halo form, a Z shard;
 - ``median3.cu`` K3, the 3x3x3 median (``kernels/median3.py``).
 
 The four sweep kernels read ``c`` (and ``g``) stored in float32 or in
@@ -72,9 +73,10 @@ _SIGNATURES = {
                         + [_IP, _P]),
     "tf3d_sor_gc_sweeps": ([_P] * 11 + [_I] * 5 + [_F] * 5 + [_I] * 3
                            + [_IP, _P]),
-    # i1, flow, i0, g, it, i1w (may be null), D, H, W, z0, dg, cubic,
-    # staged, tiles (int[2] on the device, may be null), stream
-    "tf3d_warp_grad": [_P] * 6 + [_I] * 7 + [_P, _P],
+    # i1, flow, i0, g, it, i1w (may be null), D, H, W, z0, dg, ip (I1's pad
+    # planes in the halo form, else 0), cubic, staged, tiles (int[2] on the
+    # device, may be null), stream
+    "tf3d_warp_grad": [_P] * 6 + [_I] * 8 + [_P, _P],
     # du_a, du_o, c_a, g_a, ps_a, ps_o, pd_a, duo_lo, duo_hi, pso_lo, pso_hi,
     # out, D, H, WP, z0, dg, half_alpha, omega, one_minus_omega, color,
     # terms_bf16, stream

@@ -1,6 +1,6 @@
 """Geometric multigrid V-cycles on the linearized Euler-Lagrange system.
 
-Port of ``tpuflow3d.mgsolver`` for one device, selected by
+Port of ``tpuflow3d.mgsolver``, selected by
 ``FlowParams(solver="multigrid")``. Per nonlinearity update (frozen psi
 weights) the per-voxel system is (sw*I + D) du_p - sum_q w_pq du_q = c
 (solver.py). A V-cycle is mg_pre red-black sweeps -> residual -> trilinear

@@ -1,6 +1,6 @@
 """Coarse-to-fine flow pipeline.
 
-Port of ``tpuflow3d.pipeline`` for one device: normalize -> presmooth ->
+Port of ``tpuflow3d.pipeline``: normalize -> presmooth ->
 build pyramids -> per level (coarse to fine) ``warps`` times: warp +
 derivatives -> inner solve -> median -> accumulate -> clamp; upsample
 between levels. PyTorch runs eagerly, so the reference's ``fori_loop``s
@@ -17,7 +17,9 @@ run hand-written kernels:
 ``compute_flow_checkpointed`` runs the same level loop and saves the
 flow at each level boundary (``checkpoint.py``), so an interrupted run
 resumes where it stopped. The out-of-core mode, whose volumes stay in host
-memory, is ``piecewise.compute_flow_piecewise``.
+memory, is ``piecewise.compute_flow_piecewise``; the Z-sharded mode runs
+``compute_flow_impl`` on each rank's slab under a sharded ``HaloCtx``
+(``sharding.compute_flow_sharded``).
 """
 
 from __future__ import annotations
@@ -54,13 +56,16 @@ def warp_and_derivatives(i0l, i1l, flow, p: FlowParams, ctx: HaloCtx,
     The fused kernels K2 and K5 compute 2-point derivatives, as the TPU
     kernel they replace, so they run only for ``deriv_order == 2``. Order
     4 warps and differentiates in plain PyTorch on any device: that is the
-    reference's route (it has no kernel for the 5-point stencil)."""
+    reference's route (it has no kernel for the 5-point stencil). Under a
+    sharded context ``flow_clamp`` bounds |s_z|, which sizes the warp's Z
+    halo (``sharding.prepare_params`` makes it positive)."""
     if use_kernels(p, i0l) and p.deriv_order == 2:
         from tpuflow3d_torch.kernels.warp_grad import warp_grad
         out = warp_grad(i1l, flow, i0l, ctx, interp=p.interp,
-                        emit_warped=emit_warped)
+                        emit_warped=emit_warped, max_disp=p.flow_clamp)
         return out[0], out[1], (out[2] if emit_warped else None)
-    i1w = warp_volume(i1l, flow, ctx, interp=p.interp)
+    i1w = warp_volume(i1l, flow, ctx, max_disp=p.flow_clamp,
+                      interp=p.interp)
     g, it = derivatives(i0l, i1w, ctx, order=p.deriv_order)
     return g, it, (i1w if emit_warped else None)
 
@@ -123,9 +128,10 @@ def compute_flow_impl(i0, i1, p: FlowParams, ctx: HaloCtx,
     """Coarse-to-fine solve of (D, H, W) volumes whose Z is already a
     multiple of ``z_multiple``. ``checkpoint_dir``: re-enter the level
     loop at a checkpoint of this pyramid found there, and save the flow at
-    every level boundary. ``timer``: an optional ``PhaseTimer``, given the
-    pyramid build and each level (each phase ends in a device
-    synchronize)."""
+    every level boundary (under a sharded ``ctx`` each rank reads and
+    writes its own slab, ``checkpoint.resume_state``). ``timer``: an
+    optional ``PhaseTimer``, given the pyramid build and each level (each
+    phase ends in a device synchronize)."""
     phase = PhaseTimer.maybe(timer)
     with phase("pyramids", sync=True):
         pyr0, pyr1, shapes = prepare_pyramids(i0, i1, p, ctx)
@@ -141,7 +147,7 @@ def compute_flow_impl(i0, i1, p: FlowParams, ctx: HaloCtx,
     start = n_levels - 1
     flow = torch.zeros((3, *pyr0[-1].shape), dtype=dtype, device=i0.device)
     state = (None if checkpoint_dir is None
-             else ckpt.resume_state(checkpoint_dir, shapes))
+             else ckpt.resume_state(checkpoint_dir, shapes, ctx, i0.device))
     if state is not None:
         flow = torch.as_tensor(state[0], dtype=dtype, device=i0.device)
         start = state[1]
@@ -156,7 +162,10 @@ def compute_flow_impl(i0, i1, p: FlowParams, ctx: HaloCtx,
         if checkpoint_dir is not None and li > 0:
             # The saved state is "ready to solve level li-1".
             with phase(f"checkpoint L{li - 1}"):
-                ckpt.save_level_checkpoint(checkpoint_dir, flow, li - 1, p)
+                d_local = flow.shape[-3]
+                ckpt.save_level_checkpoint(
+                    checkpoint_dir, flow, li - 1, p, z0=ctx.z0(d_local),
+                    d_global=ctx.d_global(d_local), group=ctx.group)
 
     if diagnostics:
         return flow, ({"residuals": residuals} if track else {})

@@ -103,14 +103,33 @@ def resize_z_window(xp: torch.Tensor, out_len: int, z0_out: int, z0_in: int,
 
 def resize_z(x: torch.Tensor, out_len_global: int,
              ctx: HaloCtx = HaloCtx()) -> torch.Tensor:
-    """Linear resize along Z. On one device the Z axis is local, and the
-    reference's windowed Z resize reduces to ``resize_axis_local``."""
-    return resize_axis_local(x, out_len_global, Z_AXIS)
+    """Linear resize along Z to ``out_len_global`` planes in all. On one
+    device the Z axis is local, and the reference's windowed Z resize
+    reduces to ``resize_axis_local``. On a Z shard (the output's depth a
+    multiple of the shard count: ``FlowParams.z_multiple``, see
+    ``sharding.prepare_params``) this rank's output planes are resized
+    from its slab padded through the context by ceil(scale) + 1 planes,
+    in global coordinates (``resize_z_window``)."""
+    if not ctx.has_z_neighbors:
+        return resize_axis_local(x, out_len_global, Z_AXIS)
+    d_local = x.shape[Z_AXIS]
+    in_global = ctx.d_global(d_local)
+    if in_global == out_len_global:
+        return x
+    if out_len_global % ctx.n_shards:
+        raise ValueError(f"output depth {out_len_global} is not a multiple "
+                         f"of the {ctx.n_shards} shards")
+    out_local = out_len_global // ctx.n_shards
+    scale = in_global / out_len_global
+    nh = int(math.ceil(scale)) + 1
+    return resize_z_window(ctx.zpad(x, nh), out_local, ctx.rank * out_local,
+                           ctx.rank * d_local, nh, scale, in_global)
 
 
 def resize3(x: torch.Tensor, out_shape_global: tuple[int, int, int],
             ctx: HaloCtx = HaloCtx()) -> torch.Tensor:
-    """Trilinear resize of a (..., D, H, W) array to a global (D, H, W)."""
+    """Trilinear resize of a (..., D, H, W) array (the local slab) to a
+    global (D, H, W)."""
     d, h, w = out_shape_global
     x = resize_z(x, d, ctx)
     x = resize_axis_local(x, h, axis=-2)
@@ -135,7 +154,8 @@ def upsample_flow(flow: torch.Tensor, out_shape_global: tuple[int, int, int],
     """Upsample a (3, D, H, W) flow field to the next finer level and scale
     each component by the actual dimension ratio of its axis (not the
     nominal 1/eta, which drifts with the ceil in level_shapes)."""
-    in_shape = flow.shape[-3:]
+    in_shape = (flow.shape[-3] * ctx.n_shards, flow.shape[-2],
+                flow.shape[-1])
     up = resize3(flow, out_shape_global, ctx)
     ratios = torch.tensor([out_shape_global[i] / in_shape[i] for i in range(3)],
                           dtype=up.dtype, device=up.device).reshape(3, 1, 1, 1)

@@ -25,6 +25,11 @@ under-predicts the port's in-core peak (0.37x at 512^3 for ``ladder512``).
 ``incore_fits_index_limits`` asks the kernel wrappers' own ``grid_fits``
 whether the finest level passes a kernel's 32-bit index limits (which
 raise in-core); the streamed slabs stay under them.
+
+- Z-sharded, a rank's peak is the in-core model at its slab, d/n planes
+  plus the warp's I1 halo on each side (``sharded_peak_bytes``), which
+  the command line's auto choice reads; ``chip_smoke.py`` holds it to the
+  peak each rank measures (two ranks sharing the card).
 """
 
 from __future__ import annotations
@@ -129,6 +134,48 @@ def incore_fits_index_limits(shape, p) -> bool:
         fits &= warp_grad.grid_fits(d, h, w)
     if p.median:
         fits &= median3.grid_fits(3, d, h, w)
+    if p.solver == "multigrid" or (p.solver == "sor" and not _packed(p, w)):
+        fits &= sor.grid_fits(d, h, w)
+    return fits
+
+
+def _shard_slab(shape, p, n: int) -> tuple[tuple[int, int, int], int]:
+    """(a rank's finest slab padded by its warp's I1 halo, that halo): the
+    finest level of the run ``sharding.prepare_params`` makes for n ranks,
+    d/n planes, plus ceil(clamp) + 2 planes a side (+ 3 tricubic), what the
+    fused warp (K2/K5 in halo form) holds of I1."""
+    from tpuflow3d_torch.sharding import prepare_params
+    from tpuflow3d_torch.warp import warp_halo
+    p = prepare_params(p, n)
+    d, h, w = _finest(shape, p)
+    halo = warp_halo(p.flow_clamp, p.interp) + 1
+    return (d // n + 2 * halo, h, w), halo
+
+
+def sharded_peak_bytes(shape, p, n: int) -> int:
+    """Device bytes a rank of a Z-sharded in-core run over n ranks
+    (``sharding.compute_flow_sharded``, the kernels on the GPU) needs: the
+    in-core model (per finest voxel, the coarser levels, the allocator
+    headroom) at its slab of d/n planes plus the warp's I1 halo on both
+    sides (``_shard_slab``). The exchanged planes are staged in host
+    memory under gloo and not counted."""
+    slab, _ = _shard_slab(shape, p, n)
+    from tpuflow3d_torch.sharding import prepare_params
+    pp = prepare_params(p, n).replace(z_multiple=1)
+    return incore_peak_bytes(slab, pp)
+
+
+def sharded_fits_index_limits(shape, p, n: int) -> bool:
+    """Whether a rank's arrays pass the kernels' 32-bit index limits (the
+    halo form's padded arrays for K2/K5)."""
+    if p.backend == "plain":
+        return True
+    from tpuflow3d_torch.kernels import median3, sor, warp_grad
+    (dp, h, w), halo = _shard_slab(shape, p, n)
+    d = dp - 2 * halo
+    fits = median3.grid_fits(3, d, h, w) if p.median else True
+    if p.deriv_order == 2:
+        fits &= warp_grad.grid_fits(d, h, w, halo)
     if p.solver == "multigrid" or (p.solver == "sor" and not _packed(p, w)):
         fits &= sor.grid_fits(d, h, w)
     return fits

@@ -214,6 +214,40 @@ def test_auto_mode_selects_piecewise(frames, tmp_path, monkeypatch,
             arr, flow_files(piecewise_run["port"][1])[n])
 
 
+def test_auto_mode_selects_sharded_over_several_gpus(monkeypatch):
+    """With several GPUs and a budget below the in-core model but above a
+    rank's (memory.sharded_peak_bytes), the path is sharded over all of
+    them; with one GPU, or a budget below a rank's model, piecewise."""
+    shape = (256, 256, 256)
+    p = PRESETS["ladder256"]
+    need = mem.incore_peak_bytes(shape, p)
+    rank = mem.sharded_peak_bytes(shape, p, 2)
+    assert rank < need
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    dev = torch.device("cuda")
+
+    class Log:
+        def __init__(self):
+            self.events = []
+
+        def log(self, event, **kw):
+            self.events.append({"event": event, **kw})
+
+    for budget, gpus, want in ((rank, 2, "sharded"), (rank - 1, 2,
+                                                      "piecewise"),
+                               (rank, 1, "piecewise"), (need, 2, None)):
+        monkeypatch.setenv("TPUFLOW_DEVICE_BYTES", str(budget))
+        monkeypatch.setattr(torch.cuda, "device_count", lambda g=gpus: g)
+        args = cli.build_parser().parse_args(["--frame0", "a", "--frame1",
+                                              "b"])
+        log = Log()
+        cli._auto_mode(args, shape, p, log, dev)
+        got = [e["selected"] for e in log.events if e["event"] == "auto_mode"]
+        assert got == ([want] if want else []), (budget, gpus)
+        assert args.sharded == (want == "sharded")
+        assert args.piecewise == (want == "piecewise")
+
+
 def test_auto_chunk_is_pick_chunk_z(frames, tmp_path, monkeypatch):
     """--piecewise without --chunk-z takes memory.pick_chunk_z's chunk for
     the budget, logs it, and gives the flow of that chunk given
@@ -389,18 +423,44 @@ def test_conflicts_exit_2_with_the_reference_message(name, tmp_path,
     assert _error_of(capsys.readouterr().err) == want
 
 
+# flag -> the arguments with which it cannot run: more ranks than the
+# CPU has cores, more GPUs than are visible (one, here), and the
+# multi-process addresses given in part.
+MULTI_DEVICE_FAULTS = {
+    "--sharded": ["--sharded", "--devices", str(len(os.sched_getaffinity(0))
+                                                + 1)],
+    "--devices": ["--sharded", "--devices", "2"],
+    "--distributed": ["--distributed", "--num-processes", "2"],
+    "--coordinator": ["--distributed", "--coordinator", "localhost:1234"],
+    "--num-processes": ["--distributed", "--num-processes", "2"],
+    "--process-id": ["--distributed", "--process-id", "0"],
+}
+
+
 @pytest.mark.parametrize("flag", [["--sharded"], ["--devices", "2"],
                                   ["--distributed"],
                                   ["--coordinator", "localhost:1234"],
                                   ["--num-processes", "2"],
                                   ["--process-id", "0"]],
                          ids=lambda f: f[0])
-def test_multi_device_flags_exit_2(flag, frames, tmp_path, capsys):
+def test_multi_device_flags_exit_2(flag, frames, tmp_path, capsys,
+                                   monkeypatch):
+    """The Z-sharded and multi-process flags exit 2, naming the flag and
+    writing nothing, where they cannot run: --devices past the CPU's cores
+    (--platform cpu) or past the GPUs (one visible: a card is not shared
+    unasked), and --coordinator, --num-processes and --process-id given in
+    part."""
     out = str(tmp_path / "o_")
-    assert cli.main(["--frame0", frames["f0"], "--frame1", frames["f1"],
-                     *flag, "--platform", "cpu", "--out", out]) == 2
+    argv = ["--frame0", frames["f0"], "--frame1", frames["f1"],
+            *MULTI_DEVICE_FAULTS[flag[0]], "--out", out]
+    if flag[0] == "--devices":
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    else:
+        argv += ["--platform", "cpu"]
+    assert cli.main(argv) == 2
     err = _error_of(capsys.readouterr().err)
-    assert flag[0] in err and "items 10 and 13" in err
+    assert flag[0] in err
     assert os.listdir(tmp_path) == []
 
 

@@ -741,3 +741,39 @@ def test_piecewise_kernels_match_plain_and_launch(dev, name):
     mask = syn.gradient_mask(i0, 0.75) & syn.interior_mask(shape, 4)
     incore = compute_flow(i0, i1, p, device=dev).cpu().numpy()
     assert abs(syn.epe(got, true, mask) - syn.epe(incore, true, mask)) < 0.02
+
+
+# ---- the halo form (a Z shard: ranks sharing the card through gloo) ----
+
+@pytest.fixture(scope="module")
+def shard_pool():
+    """Three ranks on cuda:0 (the middle one has two interior faces)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
+    import torch_ranks
+    pool = torch_ranks.RankPool(3, device="cuda:0", threads=2)
+    yield pool
+    pool.close()
+
+
+@pytest.mark.parametrize("depth", [36, 6], ids=["slabs", "thin_slabs"])
+@pytest.mark.parametrize("emit", [False, True])
+@pytest.mark.parametrize("max_disp", [4.0, 6.0])
+@pytest.mark.parametrize("interp", ["trilinear", "tricubic"])
+def test_warp_grad_halo_form_bitwise(shard_pool, depth, emit, max_disp,
+                                     interp):
+    """K2/K5 in halo form on each of three Z shards (global faces on the
+    outer ones, neighbours on both faces of the middle one; slabs of 2
+    planes take their halos through the all-gather) against the plain
+    sharded warp + derivatives, bitwise, at flows within +-max_disp."""
+    import torch_ranks
+    rng = np.random.default_rng(int(max_disp) * 10 + depth)
+    shape = (depth, 18, 40)
+    i0, i1 = (rng.normal(size=shape).astype(np.float32) for _ in range(2))
+    flow = rng.uniform(-max_disp, max_disp, (3, *shape)).astype(np.float32)
+    name = "warp_grad_tricubic" if interp == "tricubic" else "warp_grad"
+    for rank, (same, err, launches) in enumerate(shard_pool.run(
+            torch_ranks.warp_halo_case, i0, i1, flow, max_disp, interp,
+            emit)):
+        assert same, (rank, err)
+        assert launches == {name: 1}

@@ -251,3 +251,32 @@ def test_level_plan_is_what_the_mode_runs(monkeypatch, name,
             for ps in pw.level_plan(p, shape, chunk, temporal_block)
             for z0 in ps.z0s}
     assert seen == want
+
+
+def test_sharded_peak_is_the_incore_model_at_the_padded_slab():
+    """A rank's model: the in-core model at d/n planes of the finest level
+    plus the warp's I1 halo a side (6 planes at ``ladder256``'s clamp 4
+    from prepare_params, 5 for ``accurate``'s tricubic at its clamp 2),
+    below the whole volume's and falling with the rank count."""
+    from tpuflow3d_torch.sharding import prepare_params
+    shape = (256, 256, 256)
+    for name, halo in (("ladder256", 6), ("accurate", 5)):
+        p = PRESETS[name]
+        pp = prepare_params(p, 2).replace(z_multiple=1)
+        assert mem.sharded_peak_bytes(shape, p, 2) == mem.incore_peak_bytes(
+            (128 + 2 * halo, 256, 256), pp)
+        assert (mem.sharded_peak_bytes(shape, p, 4)
+                < mem.sharded_peak_bytes(shape, p, 2)
+                < mem.incore_peak_bytes(shape, p))
+
+
+def test_sharded_index_limits():
+    """1024^3 passes K1's 32-bit limit whole and on two ranks, not on
+    four; the halo form's padded arrays count for K2/K5."""
+    p = PRESETS["ladder1024"]
+    shape = (1024, 1024, 1024)
+    assert not mem.incore_fits_index_limits(shape, p)
+    assert not mem.sharded_fits_index_limits(shape, p, 2)
+    assert mem.sharded_fits_index_limits(shape, p, 4)
+    assert warp_grad.grid_fits(100, 1000, 1000) and not warp_grad.grid_fits(
+        100, 1000, 1000, halo=1100)

@@ -27,8 +27,10 @@ SRC = Path(__file__).resolve().parent.parent / "src"
 PKG = SRC / "tpuflow3d_torch"
 
 
-# The command line and the host modules it needs: the guard must reach them.
+# The command line, the host modules it needs, and the Z-sharded and
+# multi-process layers: the guard must reach them.
 HOST_MODULES = {"tpuflow3d_torch.cli", "tpuflow3d_torch.postproc",
+                "tpuflow3d_torch.sharding", "tpuflow3d_torch.distributed",
                 "tpuflow3d_torch.vtkio", "tpuflow3d_torch.volume",
                 "tpuflow3d_torch.ops.registry",
                 "tpuflow3d_torch.utils.logging",
