@@ -6,7 +6,14 @@
 1. Requires a CUDA device; prints the card's name and power limit and the
    torch and CUDA versions.
 2. Builds the CUDA kernels from src/tpuflow3d_torch/csrc with nvcc (one
-   nvcc per source, started together).
+   nvcc per source, started together). Then ``[roofline]``: the card's
+   own rates beside its data sheet's (``tpuflow3d_torch.utils.roofline``,
+   the one source of every rate, byte and operation count below): the
+   copy kernel of ``csrc/probe.cu`` at 1 GiB and at 64 MiB a side, each
+   with t16/t1 (16 copies against one) and ``Tensor.copy_``'s rate, the
+   1 GiB rate checked (t16/t1 in [12, 20], at most the data sheet's) and
+   taken as the probed bandwidth; and the fminf/fmaxf rate of its min/max
+   loop.
 3. Holds each kernel against its plain PyTorch version on the card at the
    finest-level shapes of the 256^3 runs, and times both: K1 SOR sweeps
    (each colour alone, the fused red+black sweep against two plain
@@ -17,8 +24,8 @@
    without the warped volume, and on the smooth and the outlier flows (for
    each warp case, how many slabs gathered from a staged box and how many
    from device memory); K3 3x3x3 median (no halo planes on one device),
-   beside the floor of its own selection network at the min/max rate a
-   short probe measures on this card; K6 general-SPD
+   beside the floor of its own selection network at the probed min/max
+   rate; K6 general-SPD
    SOR sweeps (the same forms) on gradient-constancy terms, with (alpha,
    alpha, alpha) and with an anisotropic multigrid triple, and its
    one-block form on a 16^3 system; K4 and K7, the colour-packed
@@ -27,8 +34,11 @@
    instantiations of K1, K4, K6 and K7 on the same terms stored in
    bfloat16. Beside each time stands the kernel's bound: the least time
    the card could take, the larger of its bytes (inputs read once, outputs
-   written once) over 3.35 TB/s and the operations the function needs over
-   the card's float32 rate. For a flat single-colour launch also the bytes
+   written once) over the data sheet's memory rate and the operations the
+   function needs over the card's float32 rate (``bound_ms``), and the
+   same at the probed bandwidth (``bound_probed_ms``; a ``[roofline]``
+   line names a kernel that moves its bytes faster than the probed copy).
+   For a flat single-colour launch also the bytes
    a half-sweep needs (the inactive colour's c, g or ainv and psi_d left
    out). The fused sweep and two single-colour launches are timed in turns.
    Also times pack_color and unpack_colors, the overhead of the packed layout
@@ -37,7 +47,11 @@
    a 256^3 blob translation, once through the kernels (backend "auto") and
    once plain; checks that the path's kernels (K1, K2, K3) and no other
    were launched (K1 exactly 900 times: one fused launch per sweep), that
-   the two flows agree, and the EPE of each; then the torch.profiler split
+   the two flows agree, and the EPE of each; its voxels/s (256^3 over the
+   kernel run's wall time) and their share of ``end_to_end_roofline`` at
+   the data sheet's and at the probed rate (``[roofline]``; phases 5-9
+   likewise, where multigrid has none the line says so, and phase 10 for
+   its medians); then the torch.profiler split
    of a second kernel run: device busy and idle, the device activities and
    the device time by kernel.
 5. The same for ``PRESETS["accurate"]`` (multigrid, tricubic, early stop;
@@ -149,72 +163,6 @@ TOLS = {"sor_halfsweep": (0.0, 0.0), "warp_grad": (1e-5, 1e-5),
         "median3": (0.0, 0.0), "warp_grad_tricubic": (1e-5, 1e-5),
         "sor_gc": (0.0, 0.0), "sor_packed": (5e-5, 1e-5),
         "sor_gc_packed": (5e-5, 1e-5)}
-# The card's peaks (NVIDIA's H100 SXM data sheet): device memory and
-# float32 arithmetic outside the tensor cores.
-PEAK_BYTES_PER_S, PEAK_FLOP_PER_S = 3.35e12, 67e12
-# kernel -> (operations the function needs per output element, the card's
-# rate for them). The sweeps per updated voxel (six neighbours at 9, or 8
-# without the weight sum, plus the point solve) and the fused warps per
-# voxel (coordinates, taps, stencils; one sample per voxel) are
-# multiplications and additions, rated at the FMA peak, which counts two
-# per instruction. The median per output value: 39 comparisons, the proven
-# least that select the median of 27 values (n + min(t - 1, n - t) - 1 for
-# the t-th of n; Blum, Floyd, Pratt, Rivest, Tarjan 1973), one per
-# instruction, at the min/max rate the probe measures (the rate below, one
-# per lane and clock, is replaced by it). Neighbouring voxels share 18 of
-# their 27 values, so shared work could only lower that count: bytes bound
-# the median either way.
-OPS = {"sor_halfsweep": (86, PEAK_FLOP_PER_S),
-       "sor_packed": (86, PEAK_FLOP_PER_S),
-       "sor_gc": (72, PEAK_FLOP_PER_S),
-       "sor_gc_packed": (72, PEAK_FLOP_PER_S),
-       "warp_grad": (40, PEAK_FLOP_PER_S),
-       "warp_grad_tricubic": (265, PEAK_FLOP_PER_S),
-       "median3": (39, PEAK_FLOP_PER_S / 2)}
-# What csrc/median3.cu's selection network executes per output value: min
-# and max instructions of the separable network (sorted rows, merged 3x3
-# blocks shared by two rows and three planes, one merge of two planes
-# shared by two output planes, an 18-instruction selection), counted in the
-# kernel's machine code: 336 FMNMX a loop step, which yields 4 output
-# values, and a step without outputs that starts each 64-plane chunk:
-# (33 * 336 - 168) / 128 = 85.3. Not part of the bound (a cheaper
-# selection computes the same function); printed beside it.
-MEDIAN3_NETWORK_OPS = 85.3
-# A throughput probe of fminf/fmaxf: 16 values a thread, compare-exchanged
-# in two alternating layers (30 min/max per iteration, 8 independent pairs
-# a layer), built with the kernels' flags.
-MINMAX_PROBE_SRC = r"""
-#include <cuda_runtime.h>
-__global__ void minmax_probe(float* out, int iters) {
-  float v[16];
-#pragma unroll
-  for (int k = 0; k < 16; ++k) v[k] = (threadIdx.x * 16 + k) * 1e-3f;
-  for (int i = 0; i < iters; ++i) {
-#pragma unroll
-    for (int k = 0; k < 16; k += 2) {
-      const float a = v[k], b = v[k + 1];
-      v[k] = fminf(a, b);
-      v[k + 1] = fmaxf(a, b);
-    }
-#pragma unroll
-    for (int k = 1; k < 15; k += 2) {
-      const float a = v[k], b = v[k + 1];
-      v[k] = fminf(a, b);
-      v[k + 1] = fmaxf(a, b);
-    }
-  }
-  float s = 0.f;
-#pragma unroll
-  for (int k = 0; k < 16; ++k) s += v[k];
-  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
-}
-extern "C" int minmax_probe_launch(float* out, int blocks, int iters,
-                                   void* stream) {
-  minmax_probe<<<blocks, 256, 0, (cudaStream_t)stream>>>(out, iters);
-  return (int)cudaGetLastError();
-}
-"""
-MINMAX_PER_ITER = 30
 # kernel -> (the source that holds its device code, the TPU kernel it
 # replaces, the C entry's source where another file holds the body).
 SOURCES = {
@@ -335,19 +283,10 @@ def gpu_name_and_power_limit() -> str:
 
 
 def cuda_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median device time of fn() in ms, one CUDA-event pair per run."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    """Median device time of fn() in ms, one CUDA-event pair per run on
+    the current device."""
+    from tpuflow3d_torch.utils.roofline import median_ms
+    return median_ms(fn, torch.cuda.current_device(), reps, warmup)
 
 
 def tensor_bytes(*tensors) -> int:
@@ -356,17 +295,71 @@ def tensor_bytes(*tensors) -> int:
                if hasattr(t, "element_size"))
 
 
-def bound(name: str, nbytes: int, elements: int) -> dict:
-    """The least time the card could take for a kernel's work: its bytes
-    over the memory rate or the operations it needs over their rate,
-    whichever is larger."""
-    by_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
-    ops, rate = OPS[name]
-    by_ops = 1e3 * ops * elements / rate
-    return {"bound_ms": max(by_bytes, by_ops),
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "bound_bytes_ms": by_bytes, "bound_operations_ms": by_ops,
-            "bytes": nbytes}
+# What the [roofline] phase measured on this card: "rates", the rates
+# utils/roofline.OPS are held to (the min/max rate probed), "sheet_bw", the
+# data sheet's memory rate, and "probed_bw", the copy kernel's sustained
+# bytes/s. Empty in the ranks of phase 16, which bound only the warps, at
+# the data sheet's rates.
+ROOFLINE: dict = {}
+
+
+def roofline_phase(torch, dev, card: str, summary: dict) -> None:
+    """[roofline]: the card's own rates beside its data sheet's
+    (utils/roofline.py): the copy kernel at the default footprint and at
+    64 MiB a side (the L2 is 50 MB), with t16/t1 and Tensor.copy_'s rate,
+    and the fminf/fmaxf rate K3's comparisons are held to. Raises where
+    the default footprint's probe fails ``check_probe``."""
+    from tpuflow3d_torch.utils import roofline
+    rates = roofline.peak_rates(dev)
+    sheet = roofline.device_hbm_bw(dev)
+    log(f"[roofline] {card}: data sheet {sheet:.4g} B/s, float32 "
+        f"{rates['fp32']:.4g} FLOP/s")
+    probes = {}
+    for nbytes in (roofline.PROBE_BYTES, 64 << 20):
+        pr = roofline.probe_timing_model(nbytes, dev)
+        fault = roofline.check_probe(pr)
+        log(f"[roofline] copy kernel, {nbytes >> 20} MiB a side: "
+            f"{pr.bytes_per_s:.6g} B/s ({100 * pr.bytes_per_s / sheet:.1f}% "
+            f"of the data sheet), t16/t1 {pr.ratio:.3f} (one copy "
+            f"{pr.t1_ms:.4f} ms, 16 {pr.t16_ms:.4f} ms); Tensor.copy_ "
+            f"{pr.copy_bytes_per_s:.6g} B/s; "
+            + (f"not a bandwidth: {fault}" if fault else "checks pass"))
+        probes[nbytes] = {**pr._asdict(), "fault": fault}
+    probed = roofline.measure_hbm_bw(roofline.PROBE_BYTES, dev)
+    mm = roofline.minmax_rate(dev)
+    log(f"[roofline] fminf/fmaxf: {mm / 1e12:.2f} T/s on this card (one "
+        f"per lane and clock would be {rates['minmax'] / 1e12:.2f})")
+    rates["minmax"] = mm
+    ROOFLINE.update(rates=rates, sheet_bw=sheet, probed_bw=probed)
+    summary["roofline"] = {"card": card, "sheet_bytes_per_s": sheet,
+                           "probed_bytes_per_s": probed, "rates": rates,
+                           "probes_by_bytes": probes, "end_to_end": {}}
+
+
+def e2e_share(label: str, p, seconds: float, summary: dict) -> None:
+    """[roofline] line of an in-core one-device run at SHAPE: its voxels/s
+    and their share of utils/roofline.end_to_end_roofline at the data
+    sheet's and at the probed rate (or why the run has no such bound)."""
+    from tpuflow3d_torch.utils import roofline
+    shapes = p.level_shapes(SHAPE)
+    vps = SHAPE[0] * SHAPE[1] * SHAPE[2] / seconds
+    try:
+        sheet = roofline.end_to_end_roofline(shapes, p,
+                                             bw=ROOFLINE["sheet_bw"])
+        probed = roofline.end_to_end_roofline(shapes, p,
+                                              bw=ROOFLINE["probed_bw"])
+    except ValueError as e:
+        log(f"[roofline] {label}: no end-to-end line ({e})")
+        return
+    log(f"[roofline] {label}: {vps:.6g} voxels/s in {seconds:.4f} s; "
+        f"end-to-end roofline {sheet:.6g} voxels/s at the data sheet's rate "
+        f"({100 * vps / sheet:.2f}%), {probed:.6g} at the probed rate "
+        f"({100 * vps / probed:.2f}%), "
+        f"{roofline.sweep_byte_model(p).per_sweep:g} B a sweep")
+    summary["roofline"]["end_to_end"][label] = {
+        "seconds": seconds, "voxels_per_s": vps, "roofline_sheet": sheet,
+        "roofline_probed": probed, "share_sheet": vps / sheet,
+        "share_probed": vps / probed}
 
 
 def compare(torch, name, got, ref) -> float:
@@ -389,34 +382,6 @@ def compare(torch, name, got, ref) -> float:
                                  f"rtol {rtol} (max |diff| {worst:.3e}), or "
                                  f"non-finite output")
     return worst
-
-
-def minmax_rate(torch, kernels, dev) -> float:
-    """fminf/fmaxf per second on this card: the probe built with nvcc and
-    the kernels' flags, 8 blocks per SM of 256 threads, timed with CUDA
-    events."""
-    import ctypes
-    src = kernels.BUILD_DIR / "minmax_probe.cu"
-    lib_path = kernels.BUILD_DIR / "libminmax_probe.so"
-    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    src.write_text(MINMAX_PROBE_SRC)
-    subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o",
-                    str(lib_path), str(src)], check=True, timeout=300)
-    fn = ctypes.CDLL(str(lib_path)).minmax_probe_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    blocks = 8 * torch.cuda.get_device_properties(dev).multi_processor_count
-    iters = 4096
-    out = torch.empty(blocks * 256, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-
-    def run():
-        if fn(out.data_ptr(), blocks, iters, stream) != 0:
-            raise RuntimeError("minmax probe: launch failed")
-
-    ms = cuda_ms(torch, run)
-    return blocks * 256 * iters * MINMAX_PER_ITER / (ms * 1e-3)
 
 
 def profile_split(torch, run) -> None:
@@ -590,6 +555,7 @@ def window_phase(torch, label, p, pyr0, pyr1, summary, checked: set,
                                            _ph_terms_gc, _ph_terms_mg,
                                            _slab_terms)
     from tpuflow3d_torch.solver import parity_mask, sor_halfsweep
+    from tpuflow3d_torch.utils import roofline
     from tpuflow3d_torch.warp import warp_volume
 
     gen = torch.Generator(device=pyr0[0].device).manual_seed(6)
@@ -614,12 +580,16 @@ def window_phase(torch, label, p, pyr0, pyr1, summary, checked: set,
 
     def timed(name, what, kern, plain, nbytes, elements, key):
         ms, plain_ms = cuda_ms(torch, kern), cuda_ms(torch, plain)
-        b = bound(name, nbytes, elements)
+        b, b_probed = (roofline.bound(name, nbytes, elements, bw=ROOFLINE[k],
+                                      rates=ROOFLINE["rates"])
+                       for k in ("sheet_bw", "probed_bw"))
         log(f"[window:{label}] {what}: kernel {ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms, bound {b['bound_ms']:.3f} ms by "
-            f"{b['bound_by']}")
+            f"{b['bound_by']} ({b_probed['bound_ms']:.3f} at the probed "
+            f"rate)")
         summary[name].setdefault("window", {})[f"{label} {key}"] = {
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"]}
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
+            "bound_probed_ms": b_probed["bound_ms"]}
 
     for li, (v0, v1) in enumerate(zip(pyr0, pyr1)):
         dg, h, w = v0.shape
@@ -1420,6 +1390,7 @@ def shard_forms(torch, label, pp, i0, i1, ctx, dev, timings: dict):
     from tpuflow3d_torch.pipeline import prepare_pyramids, warp_and_derivatives
     from tpuflow3d_torch.sharding import process_z_range
     from tpuflow3d_torch.solver import compute_terms, parity_mask, sor_halfsweep
+    from tpuflow3d_torch.utils import roofline
     from tpuflow3d_torch.warp import warp_halo, warp_volume
 
     tag = f"[shard:{label}] rank {ctx.rank}"
@@ -1488,13 +1459,14 @@ def shard_forms(torch, label, pp, i0, i1, ctx, dev, timings: dict):
             wrapper_ms, plain_ms = cuda_ms(torch, kern), cuda_ms(torch, plain)
             if timings is not None:
                 n = dl * h * w
-                b = bound(warp_name, tensor_bytes(*padded)
-                          + (5 if gamma else 4) * 4 * n, n)
+                nbytes = tensor_bytes(*padded) + (5 if gamma else 4) * 4 * n
+                b = roofline.bound(warp_name, nbytes, n, device=dev)
                 key = f"{warp_name}/halo{'/emit' if gamma else ''}"
                 timings.setdefault(key, {
                     "ms": bare, "wrapper_ms": wrapper_ms,
                     "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
-                    "bound_by": b["bound_by"], "slab": [dl, h, w],
+                    "bound_by": b["bound_by"], "bytes": nbytes,
+                    "elements": n, "slab": [dl, h, w],
                     "halo_planes": nh + 1, "flow_clamp": pp.flow_clamp})
                 log(f"{tag} {key} {at}: kernel alone {bare:.3f} ms, wrapper "
                     f"with its exchanges {wrapper_ms:.3f} ms and plain "
@@ -1920,6 +1892,7 @@ def main() -> None:
     from tpuflow3d_torch.mgsolver import _weights
     from tpuflow3d_torch.pipeline import prepare_pyramids
     from tpuflow3d_torch.solver import compute_terms, parity_mask, sor_halfsweep
+    from tpuflow3d_torch.utils import roofline
     from tpuflow3d_torch.warp import warp_volume
 
     # 1. The device.
@@ -1935,6 +1908,12 @@ def main() -> None:
     kernels.load_library()
     log(f"[build] {'built' if fresh else 'found'} {kernels.library_path()} "
         f"in {time.perf_counter() - t0:.2f} s")
+    summary = {}
+
+    # The card's own rates, beside its data sheet's (utils/roofline.py).
+    roofline_phase(torch, dev, card, summary)
+    rates, sheet_bw, probed_bw = (ROOFLINE[k] for k in ("rates", "sheet_bw",
+                                                        "probed_bw"))
 
     # 3. Each kernel against its plain version at the finest-level shapes.
     p = PRESETS["ladder256"]
@@ -1968,7 +1947,6 @@ def main() -> None:
     # instantiation, "sweep" the fused red+black sweep and "sweep3" three
     # of them in one wrapper call.
     n_vox = SHAPE[0] * SHAPE[1] * SHAPE[2]
-    summary = {}
 
     def run_cases(cases):
         for case, (kern, plain, nbytes, elements, *needed) in cases.items():
@@ -1981,16 +1959,25 @@ def main() -> None:
             err = compare(torch, name, got, ref)
             del got, ref
             ms, plain_ms = cuda_ms(torch, kern), cuda_ms(torch, plain)
-            b = bound(name, nbytes, elements)
+            b = roofline.bound(name, nbytes, elements, bw=sheet_bw,
+                               rates=rates)
+            b_probed = roofline.bound(name, nbytes, elements, bw=probed_bw,
+                                      rates=rates)["bound_ms"]
+            if nbytes / (1e-3 * ms) > probed_bw:
+                log(f"[roofline] {case}: {nbytes / (1e-3 * ms):.6g} B/s, "
+                    f"faster than the probed copy's {probed_bw:.6g} (a "
+                    f"kernel that mostly reads can be)")
             extra = {}
             if needed:
-                extra["needed_bytes_ms"] = 1e3 * needed[0] / PEAK_BYTES_PER_S
+                extra["needed_bytes_ms"] = 1e3 * needed[0] / sheet_bw
                 note = (f"; needed {needed[0] / n_vox:.1f} B/voxel: "
                         f"{extra['needed_bytes_ms']:.3f} ms")
             elif name == "median3":
                 extra["network_operations_ms"] = (
-                    1e3 * MEDIAN3_NETWORK_OPS * elements / OPS[name][1])
-                note = (f"; its own network's {MEDIAN3_NETWORK_OPS} min/max "
+                    1e3 * roofline.MEDIAN3_NETWORK_OPS * elements
+                    / rates["minmax"])
+                note = (f"; its own network's {roofline.MEDIAN3_NETWORK_OPS} "
+                        f"min/max "
                         f"{extra['network_operations_ms']:.3f} ms")
             else:
                 note = ""
@@ -1998,7 +1985,8 @@ def main() -> None:
                 f"{TOLS[name][0]}), kernel {ms:.3f} ms, plain {plain_ms:.3f} "
                 f"ms, bound {b['bound_ms']:.3f} ms by {b['bound_by']} "
                 f"({nbytes / n_vox:.1f} B/voxel: {b['bound_bytes_ms']:.3f} "
-                f"ms; operations {b['bound_operations_ms']:.3f} ms{note})")
+                f"ms; operations {b['bound_operations_ms']:.3f} ms{note}); "
+                f"at the probed rate {b_probed:.3f} ms")
             # One entry per kernel: the worst error, and the times and the
             # bound of its first case (of its first bfloat16 case under
             # keys ending in _bf16; of the fused sweep and of three fused
@@ -2010,7 +1998,10 @@ def main() -> None:
                              ("bound_by", b["bound_by"]),
                              ("bound_bytes_ms", b["bound_bytes_ms"]),
                              ("bound_operations_ms",
-                              b["bound_operations_ms"]), *extra.items()):
+                              b["bound_operations_ms"]),
+                             ("bound_probed_ms", b_probed),
+                             ("probed_bytes_per_s", probed_bw),
+                             *extra.items()):
                 entry.setdefault(prefix + key + suffix, val)
 
     # K2 and K5: the fused warps, on uniform random flows, on a smooth flow
@@ -2264,12 +2255,8 @@ def main() -> None:
         torch.cuda.empty_cache()
     del flow, du, g, it, i1w, gc, parity
 
-    # K3: the median (no halo planes on one device), and the rate of the
-    # min/max that its selection network is made of.
-    mm_rate = minmax_rate(torch, kernels, dev)
-    log(f"[probe] fminf/fmaxf: {mm_rate / 1e12:.2f} T/s on this card (the "
-        f"bound's assumption: {OPS['median3'][1] / 1e12:.2f})")
-    OPS["median3"] = (OPS["median3"][0], mm_rate)
+    # K3: the median (no halo planes on one device), its comparisons at the
+    # min/max rate [roofline] probed.
     x = cuda_rand(1.0, (3, *SHAPE))
     xq = torch.round(x * 4.0) / 4.0  # quantized: many ties
     median_bytes = 2 * tensor_bytes(x)  # x read once, out written once
@@ -2279,7 +2266,7 @@ def main() -> None:
         "median3/ties": (lambda: [k_median3(xq, ctx)],
                          lambda: [median3(xq, ctx)], median_bytes,
                          3 * n_vox)})
-    summary["median3"]["minmax_per_s"] = mm_rate
+    summary["median3"]["minmax_per_s"] = rates["minmax"]
     del x, xq
     del pyr0, pyr1, v0, v1
     torch.cuda.empty_cache()
@@ -2307,6 +2294,7 @@ def main() -> None:
             f"(not modelled: on the GPU the command line runs the kernels)")
         log(f"{tag} 256^3: kernels {t_auto:.2f} s, plain {t_plain:.2f} s; "
             f"launches {launches[path]}")
+        e2e_share(path, pp, t_auto, summary)
         check_launches(path, launches[path], expected)
         for f in (f_auto, f_plain):
             if tuple(f.shape) != (3, *SHAPE) or not bool(
@@ -2355,7 +2343,12 @@ def main() -> None:
             f"{key} median {statistics.median(ts):.4f} s (min "
             f"{min(ts):.4f}, max {max(ts):.4f}, {len(ts)} runs)"
             for key, ts in times.items()))
+        for key, pp in ((flat, pf), (packed, pk)):
+            e2e_share(f"{key} median of {len(times[key])}", pp,
+                      statistics.median(times[key]), summary)
         torch.cuda.empty_cache()
+
+    log("[roofline] " + json.dumps(summary.pop("roofline")))
 
     # 11-14. The streamed (out-of-core) paths.
     stream_phases(torch, i0, i1, true, mask, launches, summary)
@@ -2391,6 +2384,10 @@ def main() -> None:
                 **{k: timed[0][k] for k in ("ms", "plain_ms", "bound_ms",
                                             "bound_by", "wrapper_ms",
                                             "slab", "halo_planes")},
+                "bound_probed_ms": roofline.bound(
+                    name, timed[0]["bytes"], timed[0]["elements"],
+                    bw=probed_bw, rates=rates)["bound_ms"],
+                "probed_bytes_per_s": probed_bw,
                 "timed": timed}
 
     log(card)

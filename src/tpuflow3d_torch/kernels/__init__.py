@@ -17,7 +17,9 @@ point that launches its kernel on a given stream and returns
 - ``warp_grad.cu`` K2 (trilinear) and K5 (tricubic), the fused warp +
   derivatives (``kernels/warp_grad.py``), on a whole volume, a streamed
   window or, in halo form, a Z shard;
-- ``median3.cu`` K3, the 3x3x3 median (``kernels/median3.py``).
+- ``median3.cu`` K3, the 3x3x3 median (``kernels/median3.py``);
+- ``probe.cu`` no kernel of the path: the streaming copy and the
+  fminf/fmaxf loop with which ``utils/roofline.py`` measures the card.
 
 The four sweep kernels read ``c`` (and ``g``) stored in float32 or in
 bfloat16 (``csrc/terms.cuh``). ``load_library`` compiles them with nvcc for
@@ -89,6 +91,10 @@ _SIGNATURES = {
                                      + [_I, _I, _P]),
     # x, lo, hi (both null on one device), out, C, D, H, W, stream
     "tf3d_median3": [_P] * 4 + [_I] * 4 + [_P],
+    # The probes of utils/roofline.py. dst, src, float4 count, reps, stream
+    "tf3d_copy_probe": [_P, _P, ctypes.c_longlong, _I, _P],
+    # out, blocks, iters, stream
+    "tf3d_minmax_probe": [_P, _I, _I, _P],
 }
 
 

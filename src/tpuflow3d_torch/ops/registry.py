@@ -7,8 +7,9 @@ kernel's wrapper where the op has a CUDA kernel: it runs the kernel on
 CUDA tensors and the plain version on CPU tensors). ``bytes_per_voxel`` is
 the least traffic of one call: each input read once and each output
 written once, per voxel of the volume, float32 (bfloat16 where a variant
-says so), as ``chip_smoke.py``'s ``bound()`` counts the kernels'.
-Compute never dispatches through strings.
+says so); the kernels' counts come from ``utils/roofline.py``, from which
+``chip_smoke.py`` takes its bounds too. Compute never dispatches through
+strings.
 """
 
 from __future__ import annotations
@@ -24,6 +25,9 @@ from tpuflow3d_torch import warp as _warp
 from tpuflow3d_torch.kernels import median3 as _k_median3
 from tpuflow3d_torch.kernels import sor as _k_sor
 from tpuflow3d_torch.kernels import warp_grad as _k_warp_grad
+from tpuflow3d_torch.utils.roofline import (MEDIAN3_BYTES_PER_VOXEL,
+                                            WARP_BYTES_PER_VOXEL,
+                                            SweepByteModel)
 
 
 @dataclass(frozen=True)
@@ -83,14 +87,16 @@ _register(OpSpec(
     name="warp_derivatives",
     fn=_k_warp_grad.warp_grad,
     z_halo="ceil(max |flow_z|) + 1 planes (+1 tricubic)",
-    bytes_per_voxel=4 + 12 + 4 + 16,  # read i1+flow+i0, write g(3)+It
+    bytes_per_voxel=WARP_BYTES_PER_VOXEL[False],
     reference="registration + derivative kernels (one fused pass here)",
     doc="Fused backward warp + spatiotemporal derivative stencils in one "
         "pass: K2 (trilinear), K5 (tricubic Catmull-Rom, 64 taps a "
         "sample), csrc/warp_grad.cu. With emit_warped (gamma > 0) it also "
         "writes the warped volume.",
-    byte_variants={"trilinear": 36.0, "trilinear, warped volume too": 40.0,
-                   "tricubic": 36.0, "tricubic, warped volume too": 40.0}))
+    byte_variants={f"{interp}{', warped volume too' if emit else ''}":
+                   float(WARP_BYTES_PER_VOXEL[emit])
+                   for interp in ("trilinear", "tricubic")
+                   for emit in (False, True)}))
 
 _register(OpSpec(
     name="derivatives",
@@ -112,13 +118,23 @@ _register(OpSpec(
         "assumption; feeds the full symmetric 3x3 point solve "
         "(solver.SolveTerms.ainv)."))
 
+
+def _solve_bytes(packed: bool, terms_bytes: int = 4, gc: bool = False) -> float:
+    """Bytes per voxel of one launch of a sweep kernel, from the byte
+    model of utils/roofline.py: a fused red+black sweep of the flat layout;
+    a half-sweep of the packed one, with the copied halo planes of a
+    256-plane volume (16/256 B, as chip_smoke.py's packed cases pass
+    them)."""
+    m = SweepByteModel(packed=packed, terms_bytes=terms_bytes, gc=gc)
+    return m.per_half_sweep + m.halo_plane_bytes(256) if packed else \
+        m.per_sweep
+
+
 _register(OpSpec(
     name="solve",
     fn=_k_sor.sor_halfsweep,
     z_halo="1 plane per half-sweep",
-    # One fused red+black sweep of K1 (csrc/sor_sweep.cuh via sor.cu): du
-    # read and written (24), c and g (24), psi_s and psi_d (8).
-    bytes_per_voxel=56.0,
+    bytes_per_voxel=_solve_bytes(packed=False),
     reference="CudaOperationSolve3D",
     doc="Red-black SOR on the coupled Euler-Lagrange system "
         "(Sherman-Morrison pointwise solve). bytes_per_voxel is one sweep "
@@ -126,20 +142,22 @@ _register(OpSpec(
         "packed layout (K4, K7: per half-sweep of the packed arrays, per "
         "voxel of the volume) and the general SPD system of gamma > 0 and "
         "multigrid (K6, K7).",
-    byte_variants={"flat sweep (K1)": 56.0,
-                   "flat sweep, bf16 terms": 44.0,
-                   "packed half-sweep (K4)": 36.1,
-                   "packed half-sweep, bf16 terms": 30.1,
-                   "gc flat sweep (K6, gamma > 0, multigrid)": 64.0,
-                   "gc flat sweep, bf16 terms": 58.0,
-                   "gc packed half-sweep (K7)": 40.1,
-                   "gc packed half-sweep, bf16 terms": 37.1}))
+    byte_variants={
+        "flat sweep (K1)": _solve_bytes(False),
+        "flat sweep, bf16 terms": _solve_bytes(False, 2),
+        "packed half-sweep (K4)": _solve_bytes(True),
+        "packed half-sweep, bf16 terms": _solve_bytes(True, 2),
+        "gc flat sweep (K6, gamma > 0, multigrid)": _solve_bytes(False,
+                                                                 gc=True),
+        "gc flat sweep, bf16 terms": _solve_bytes(False, 2, gc=True),
+        "gc packed half-sweep (K7)": _solve_bytes(True, gc=True),
+        "gc packed half-sweep, bf16 terms": _solve_bytes(True, 2, gc=True)}))
 
 _register(OpSpec(
     name="median",
     fn=_k_median3.median3,
     z_halo="1 plane",
-    bytes_per_voxel=24.0,  # the three components read once, written once
+    bytes_per_voxel=float(MEDIAN3_BYTES_PER_VOXEL),
     reference="CudaOperationMedian3D",
     doc="3x3x3 median filter on flow increments (K3, csrc/median3.cu)."))
 

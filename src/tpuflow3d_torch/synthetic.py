@@ -13,7 +13,16 @@ from __future__ import annotations
 
 import numpy as np
 
-_COORD_DTYPE = np.float64
+_COORD_DTYPE = np.float64  # float32 for big volumes via set_coord_dtype
+
+
+def set_coord_dtype(dtype) -> None:
+    """Ground-truth coordinate precision: float64 by default; float32
+    makes 256^3 and larger pairs several times faster to generate, at
+    ~1e-4 voxels of error in the truth. A module global, as in the
+    reference: restore the default when done."""
+    global _COORD_DTYPE
+    _COORD_DTYPE = np.dtype(dtype)
 
 
 def _coords(shape: tuple[int, int, int]) -> np.ndarray:

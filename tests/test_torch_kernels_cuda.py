@@ -10,7 +10,9 @@ K2/K5 and single-colour K1/K6 on window slabs (z0 below, at and inside the
 volume) bitwise against their plain window versions, K2/K5 on a window that
 is the whole volume bitwise the one-device launch, K4/K7 with null halo
 planes bitwise the call with copied ones, and compute_flow_piecewise
-through the kernels bitwise its plain run.
+through the kernels bitwise its plain run. The probes of utils/roofline.py
+(csrc/probe.cu): the copy bitwise its source, the min/max loop bitwise its
+plain network, and the bandwidth probe's own checks on this card.
 
 Marked ``cuda``: every test skips when torch.cuda.is_available() is false.
 The machine with the card has no JAX, and tests/conftest.py imports it,
@@ -38,6 +40,7 @@ from tpuflow3d_torch.kernels.warp_grad import warp_grad as k_warp_grad
 from tpuflow3d_torch.median import median3
 from tpuflow3d_torch.mgsolver import _weights, build_mg_levels
 from tpuflow3d_torch.solver import compute_terms, parity_mask, sor_halfsweep
+from tpuflow3d_torch.utils import roofline
 from tpuflow3d_torch.warp import warp_volume
 from torch_inputs import make_flow, median_input
 
@@ -777,3 +780,30 @@ def test_warp_grad_halo_form_bitwise(shard_pool, depth, emit, max_disp,
             emit)):
         assert same, (rank, err)
         assert launches == {name: 1}
+
+
+@pytest.mark.parametrize("numel", [4, 1000, (1 << 20) + 12])
+def test_copy_probe_is_its_source(dev, numel):
+    """The copy kernel, several passes, on sizes that end inside a grid
+    stride and inside an unrolled step."""
+    src = torch.randn(numel, device=dev)
+    dst = torch.zeros_like(src)
+    roofline.copy_probe(dst, src, reps=3)
+    torch.cuda.synchronize()
+    assert torch.equal(dst, src)
+
+
+@pytest.mark.parametrize("iters", [0, 1, 7])
+def test_minmax_probe_matches_its_plain_network(dev, iters):
+    out = torch.empty(3 * 256, device=dev)
+    roofline.minmax_probe(out, iters)
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), roofline.minmax_probe_plain(3, iters))
+
+
+def test_bandwidth_probe_passes_its_checks(dev):
+    """At the default footprint (1 GiB a side) the probe's 16 copies take
+    12-20x one copy's time and its rate stays under the data sheet's."""
+    bw = roofline.measure_hbm_bw(device=dev)
+    assert 0 < bw <= roofline.device_hbm_bw(dev)
+    assert roofline.minmax_rate(dev) > 0

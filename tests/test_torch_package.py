@@ -189,6 +189,30 @@ def test_synthetic_copy_is_bitwise(texture):
                                                           mask)
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_set_coord_dtype_is_the_references(dtype):
+    """make_pair under float32 coordinates (and under the float64 default)
+    is bitwise the reference's; the module global is restored, so other
+    tests in the same process see the default."""
+    shape = (10, 12, 9)
+    pairs = {}
+    try:
+        for mod in (syn, ref_syn):
+            mod.set_coord_dtype(dtype)
+            pairs[mod] = mod.make_pair(shape, mod.sinusoid(shape, 1.2),
+                                       seed=3)
+    finally:
+        syn.set_coord_dtype(np.float64)
+        ref_syn.set_coord_dtype(np.float64)
+    for x, y in zip(pairs[syn], pairs[ref_syn]):
+        assert x.dtype == y.dtype
+        np.testing.assert_array_equal(x, y)
+    assert syn._COORD_DTYPE == np.float64
+    default = syn.make_pair(shape, syn.sinusoid(shape, 1.2), seed=3)
+    same = all(np.array_equal(a, b) for a, b in zip(default, pairs[syn]))
+    assert same == (dtype == np.float64)
+
+
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     import shutil
 
@@ -208,7 +232,7 @@ def test_library_path_follows_sources():
     assert re.fullmatch(r"lib[0-9a-f]{16}\.so", path.name)
     assert {p.name for p in kernels.CSRC_DIR.glob("*.cu")} == {
         "sor.cu", "warp_grad.cu", "median3.cu", "sor_gc.cu", "sor_packed.cu",
-        "sor_gc_packed.cu"}
+        "sor_gc_packed.cu", "probe.cu"}
 
 
 def test_library_path_follows_headers(tmp_path, monkeypatch):
