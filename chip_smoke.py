@@ -45,15 +45,19 @@
    per inner iteration.
 4. Drives ``tpuflow3d_torch.compute_flow`` with ``PRESETS["ladder256"]`` on
    a 256^3 blob translation, once through the kernels (backend "auto") and
-   once plain; checks that the path's kernels (K1, K2, K3) and no other
-   were launched (K1 exactly 900 times: one fused launch per sweep), that
-   the two flows agree, and the EPE of each; its voxels/s (256^3 over the
-   kernel run's wall time) and their share of ``end_to_end_roofline`` at
-   the data sheet's and at the probed rate (``[roofline]``; phases 5-9
-   likewise, where multigrid has none the line says so, and phase 10 for
-   its medians); then the torch.profiler split
-   of a second kernel run: device busy and idle, the device activities and
-   the device time by kernel.
+   once plain, each replayed from the CUDA graphs of ``graphs.py`` (the
+   first call of each captures them, with no graphs held before it); beside
+   the kernel run the eager driver ``pipeline.compute_flow_impl`` on the
+   same inputs, whose flow must be bitwise the graphed one, with the same
+   launches of every kernel; checks that the path's kernels (K1, K2, K3)
+   and no other were launched (K1 exactly 900 times: one fused launch per
+   sweep), that the two flows agree, and the EPE of each; its voxels/s
+   (256^3 over a warm graphed call's wall time) and their share of
+   ``end_to_end_roofline`` at the data sheet's and at the probed rate
+   (``[roofline]``; phases 5-9 likewise, where multigrid has none the line
+   says so, and phase 10 for its medians); then the torch.profiler split
+   of a warm graphed kernel run: device busy and idle, the device
+   activities and the device time by kernel.
 5. The same for ``PRESETS["accurate"]`` (multigrid, tricubic, early stop;
    K5, K6 and K3) on the same pair, with EPE < 1e-3 on both runs, and the
    profiler split.
@@ -66,8 +70,8 @@
 9. The same for ``PRESETS["accurate-bf16"]`` (``accurate`` with c and g
    stored in bfloat16: K5, the bfloat16 K6, K3), EPE < 1e-3 on both runs.
 10. Times the flat and the packed layout end to end in turns (flat, packed,
-   packed, flat; three turns), with and without gamma, and prints the
-   median of each; the packed path also gets the profiler split.
+   packed, flat; three turns; each a warm graphed call after a first call
+   that captured), with and without gamma, and prints the median of each.
 11-14. The out-of-core mode, ``piecewise.compute_flow_piecewise`` with
    64-plane chunks. Before each path runs, ``[window:<path>]`` holds the
    kernels in the forms that path gives them, on every level of its own
@@ -129,11 +133,20 @@
    checkpoint: the survivor must exit non-zero within 120 s, and a
    relaunch resumes to the same bits.
 
-Every in-core run through the kernels (phases 4-10, 12-15) prints its
-device peak (``torch.cuda.max_memory_allocated`` beyond what was allocated
-before it) beside ``utils.memory.incore_peak_bytes``, and every streamed
-run its peak beside ``utils.memory.streamed_peak_bytes`` for its chunk
-(``[mem]``); each fails if the model is below the peak.
+17. The compiled dispatch (``[17:graphs]``), for ``ladder256`` and
+   ``accurate`` at 256^3: the first graphed call's wall and capture
+   seconds; warm graphed calls against eager ``compute_flow_impl`` calls in
+   turns (graphed, eager, eager, graphed; twice); the busy share and the
+   device activities of one graphed and one eager call under the profiler;
+   the entry's static and pool bytes; ``graphs.clear()`` must bring the
+   allocated bytes back within 64 MiB of their level before the first call.
+
+Every in-core run through the kernels (phases 4-10, 12-15; graphed, its
+first call, which captures, and in phases 4-9 the eager witness too)
+prints its device peak (``torch.cuda.max_memory_allocated`` beyond what
+was allocated before it) beside ``utils.memory.incore_peak_bytes``, and
+every streamed run its peak beside ``utils.memory.streamed_peak_bytes`` for
+its chunk (``[mem]``); each fails if the model is below the peak.
 
 Every failure raises, so the exit code is non-zero. The last two lines are
 a JSON summary of the kernels (K2 and K5 in halo form as entries of their
@@ -384,10 +397,11 @@ def compare(torch, name, got, ref) -> float:
     return worst
 
 
-def profile_split(torch, run) -> None:
+def profile_split(torch, run) -> dict:
     """Run ``run`` once under torch.profiler (device activity only) and
     print the device's busy and idle share of the span, the device time
-    of the kernels that took the most, and that of each ported kernel."""
+    of the kernels that took the most, and that of each ported kernel;
+    return the wall, busy and span times and the count of activities."""
     from torch.profiler import ProfilerActivity, profile
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -431,6 +445,91 @@ def profile_split(torch, run) -> None:
     hits = [v for name, v in by_name.items() if re.search(r"(?i)copy", name)]
     log(f"[profile]   copies: {sum(v[1] for v in hits)} device activities, "
         f"{sum(v[0] for v in hits) / 1e3:.2f} ms")
+    return {"wall_s": wall, "busy_ms": busy / 1e3, "span_ms": span / 1e3,
+            "busy_share": busy / span, "activities": len(spans)}
+
+
+# Phase 17: the graphed compute_flow of these paths against the eager
+# compute_flow_impl, in turns of (graphed, eager, eager, graphed).
+GRAPH_PATHS = ("ladder256", "accurate")
+GRAPH_TURNS = 2
+# What graphs.clear() may leave allocated beyond the level before the call.
+GRAPH_CLEAR_SLACK = 64 << 20
+
+
+def graphs_phase(torch, i0, i1, summary) -> None:
+    """Phase 17 (``[17:graphs]``): for each of GRAPH_PATHS at 256^3 the
+    first graphed call's wall and capture seconds, warm graphed calls
+    against eager ones in turns (host clock to a synchronized device, numpy
+    volumes in), the busy share and device activities of one graphed and
+    one eager call under the profiler, the entry's static and pool bytes,
+    and the allocated bytes after ``graphs.clear()`` beside those before
+    the first call (raises past GRAPH_CLEAR_SLACK)."""
+    from tpuflow3d_torch import PRESETS, compute_flow, graphs
+    from tpuflow3d_torch.grid import HaloCtx
+    from tpuflow3d_torch.pipeline import compute_flow_impl
+
+    dev = torch.device("cuda", 0)
+    res = summary["graphs"] = {"card": gpu_name_and_power_limit()}
+    for path in GRAPH_PATHS:
+        preset, changes, _, _ = PATHS[path]
+        pp = PRESETS[preset].replace(**changes)
+
+        def graphed():
+            compute_flow(i0, i1, pp, device=dev)
+            torch.cuda.synchronize(dev)
+
+        def eager():
+            compute_flow_impl(torch.as_tensor(i0, device=dev),
+                              torch.as_tensor(i1, device=dev), pp, HaloCtx())
+            torch.cuda.synchronize(dev)
+
+        graphs.clear()
+        torch.cuda.synchronize(dev)
+        before = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        graphed()
+        first = time.perf_counter() - t0
+        (cold,) = graphs.entries().values()
+        times = {"graphed": [], "eager": []}
+        for _ in range(GRAPH_TURNS):
+            for key, fn in (("graphed", graphed), ("eager", eager),
+                            ("eager", eager), ("graphed", graphed)):
+                t0 = time.perf_counter()
+                fn()
+                times[key].append(time.perf_counter() - t0)
+        prof = {"graphed": profile_split(torch, graphed),
+                "eager": profile_split(torch, eager)}
+        (info,) = graphs.entries().values()
+        graphs.clear()
+        left = torch.cuda.memory_allocated(dev) - before
+        row = res[path] = {
+            "first_call_s": first, "capture_s": cold["capture_seconds"],
+            "graphs": cold["graphs"], "captures": info["captures"],
+            "replays": info["replays"],
+            "warmup_launches": cold["warmup_launches"],
+            "static_bytes": info["static_bytes"],
+            "pool_bytes": info["pool_bytes"], "walls_s": times,
+            "graphed_median_s": statistics.median(times["graphed"]),
+            "eager_median_s": statistics.median(times["eager"]),
+            "profile": prof, "allocated_after_clear_bytes": left}
+        log(f"[17:graphs] {elapsed()} {path}: first call {first:.3f} s "
+            f"({row['graphs']} graphs, captured in {row['capture_s']:.3f} "
+            f"s); warm graphed median {row['graphed_median_s']:.4f} s "
+            f"({', '.join(f'{t:.4f}' for t in times['graphed'])}), eager "
+            f"median {row['eager_median_s']:.4f} s ("
+            f"{', '.join(f'{t:.4f}' for t in times['eager'])}), in turns; "
+            f"busy {100 * prof['graphed']['busy_share']:.1f}% graphed over "
+            f"{prof['graphed']['activities']} device activities, "
+            f"{100 * prof['eager']['busy_share']:.1f}% eager over "
+            f"{prof['eager']['activities']}; static tensors "
+            f"{row['static_bytes'] / 2 ** 30:.3f} GiB, pool "
+            f"{row['pool_bytes'] / 2 ** 30:.3f} GiB; after graphs.clear() "
+            f"{left / 2 ** 20:.1f} MiB above the level before the call")
+        if left > GRAPH_CLEAR_SLACK:
+            raise AssertionError(f"{path}: graphs.clear() left {left} bytes "
+                                 f"allocated beyond the level before the "
+                                 f"call")
 
 
 def check_launches(label: str, launches: dict, expected: dict) -> None:
@@ -771,9 +870,14 @@ def device_epe(torch, flow, shift, mask) -> float:
     return float(err[mask].mean())
 
 
-def device_peak(torch, dev, run):
-    """Run ``run``; return (its result, the device bytes allocated at its
-    peak beyond those allocated before it, those bytes)."""
+def device_peak(torch, dev, run, clear: bool = True):
+    """Run ``run``, with no graphs captured before it unless ``clear`` is
+    false (``graphs.clear``: an in-core call then captures its own);
+    return (its result, the device bytes allocated at its peak beyond those
+    allocated before it, those bytes)."""
+    from tpuflow3d_torch import graphs
+    if clear:
+        graphs.clear()
     torch.cuda.synchronize(dev)
     base = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -783,20 +887,27 @@ def device_peak(torch, dev, run):
 
 
 def check_incore_model(label, shape, p, peak, base, summary) -> None:
-    """Print an in-core run's device peak beside utils.memory's model; raise
-    if the model is below it (the auto choice would then send a volume
-    in-core that runs out of memory)."""
+    """Print an in-core run's device peak beside utils.memory's model, and
+    what its graphs hold after it (``graphs.entries``: static and pool
+    bytes; none after an eager run); raise if the model is below either
+    (the auto choice would then send a volume in-core that runs out of
+    memory)."""
+    from tpuflow3d_torch import graphs
     from tpuflow3d_torch.utils import memory as mem
     model = mem.incore_peak_bytes(shape, p)
+    held = sum(e["static_bytes"] + e["pool_bytes"]
+               for e in graphs.entries().values())
     log(f"[mem] {label} in-core {shape}: device peak "
         f"{peak / 2 ** 30:.3f} GiB (beyond {base / 2 ** 30:.3f} GiB "
-        f"allocated before), model {model / 2 ** 30:.3f} GiB, model/peak "
-        f"{model / peak:.3f}")
+        f"allocated before), graphs hold {held / 2 ** 30:.3f} GiB, model "
+        f"{model / 2 ** 30:.3f} GiB, model/peak {model / peak:.3f}")
     summary.setdefault("memory", {}).setdefault(label, []).append(
-        {"shape": list(shape), "peak_bytes": peak, "model_bytes": model})
-    if model < peak:
+        {"shape": list(shape), "peak_bytes": peak, "graph_held_bytes": held,
+         "model_bytes": model})
+    if model < max(peak, held):
         raise AssertionError(f"{label}: memory.incore_peak_bytes "
-                             f"{model} below the measured peak {peak}")
+                             f"{model} below the measured peak {peak} or the "
+                             f"{held} bytes the graphs hold")
 
 
 def log_streamed_model(label, shape, p, chunk, peak, base, summary) -> None:
@@ -1605,7 +1716,7 @@ def shard_phase(torch, i0, i1, true, mask, launches, summary) -> None:
 
     import torch.multiprocessing as mp
 
-    from tpuflow3d_torch import compute_flow
+    from tpuflow3d_torch import compute_flow, graphs
     from tpuflow3d_torch import synthetic as syn
     from tpuflow3d_torch.sharding import compute_flow_sharded, free_port
 
@@ -1624,7 +1735,7 @@ def shard_phase(torch, i0, i1, true, mask, launches, summary) -> None:
         torch.cuda.synchronize(dev)
         one[path] = (f.cpu().numpy(), time.perf_counter() - t0)
         del f
-    torch.cuda.empty_cache()
+    graphs.clear()
     log(f"[16:shard] {elapsed()} one-device flows of the {len(one)} paths "
         f"with prepare_params(., {SHARD_RANKS})")
 
@@ -1874,7 +1985,8 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from tpuflow3d_torch import PRESETS, compute_flow, kernels, synthetic as syn
+    from tpuflow3d_torch import (PRESETS, compute_flow, graphs, kernels,
+                                 synthetic as syn)
     from tpuflow3d_torch.derivatives import derivatives, grad_constancy_terms
     from tpuflow3d_torch.grid import HaloCtx
     from tpuflow3d_torch.kernels.median3 import median3 as k_median3
@@ -1890,7 +2002,7 @@ def main() -> None:
     from tpuflow3d_torch.kernels.warp_grad import warp_grad as k_warp_grad
     from tpuflow3d_torch.median import median3
     from tpuflow3d_torch.mgsolver import _weights
-    from tpuflow3d_torch.pipeline import prepare_pyramids
+    from tpuflow3d_torch.pipeline import compute_flow_impl, prepare_pyramids
     from tpuflow3d_torch.solver import compute_terms, parity_mask, sor_halfsweep
     from tpuflow3d_torch.utils import roofline
     from tpuflow3d_torch.warp import warp_volume
@@ -2277,6 +2389,8 @@ def main() -> None:
     for phase, (path, (preset, changes, expected, epe_limit)) in enumerate(
             PATHS.items(), start=4):
         pp = PRESETS[preset].replace(**changes)
+        tag = f"[{phase}:{path}]"
+        # The graphed compute_flow (graphs.py): its first call captures.
         kernels.reset_launches()
         t0 = time.perf_counter()
         f_auto, peak, base = device_peak(
@@ -2284,17 +2398,49 @@ def main() -> None:
         t_auto = time.perf_counter() - t0
         launches[path] = dict(kernels.LAUNCHES)
         check_incore_model(path, SHAPE, pp, peak, base, summary)
+        # The eager driver on the same padded inputs (Z = 256 needs no
+        # padding): bitwise the graphed flow, with the same launches.
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        f_eager, peak_e, base_e = device_peak(
+            torch, dev, lambda: compute_flow_impl(
+                torch.as_tensor(i0, device=dev),
+                torch.as_tensor(i1, device=dev), pp, HaloCtx()), clear=False)
+        t_eager = time.perf_counter() - t0
+        check_incore_model(f"{path} eager", SHAPE, pp, peak_e, base_e,
+                           summary)
+        if dict(kernels.LAUNCHES) != launches[path]:
+            raise AssertionError(f"{path}: graphed launches {launches[path]}"
+                                 f", eager {dict(kernels.LAUNCHES)}")
+        if not torch.equal(f_auto, f_eager):
+            raise AssertionError(f"{path}: the graphed flow differs from the "
+                                 f"eager one by up to "
+                                 f"{float((f_auto - f_eager).abs().max())}")
+        del f_eager
+        t0 = time.perf_counter()
+        compute_flow(i0, i1, pp, device=dev)
+        torch.cuda.synchronize(dev)
+        t_warm = time.perf_counter() - t0
+        (info,) = graphs.entries().values()
+        log(f"{tag} graphed flow bitwise the eager compute_flow_impl's, "
+            f"launches equal; first call {t_auto:.3f} s ({info['captures']} "
+            f"graphs captured in {info['capture_seconds']:.3f} s), warm "
+            f"{t_warm:.3f} s, eager {t_eager:.3f} s; static tensors "
+            f"{info['static_bytes'] / 2 ** 30:.3f} GiB, pool "
+            f"{info['pool_bytes'] / 2 ** 30:.3f} GiB")
+        if path in ("ladder256", "accurate", "packed"):
+            profile_split(torch, lambda: compute_flow(i0, i1, pp, device=dev))
         t0 = time.perf_counter()
         f_plain, peak_p, _ = device_peak(
             torch, dev, lambda: compute_flow(
                 i0, i1, pp.replace(backend="plain"), device=dev))
         t_plain = time.perf_counter() - t0
-        tag = f"[{phase}:{path}]"
         log(f"{tag} device peak of the plain run {peak_p / 2 ** 30:.3f} GiB "
             f"(not modelled: on the GPU the command line runs the kernels)")
-        log(f"{tag} 256^3: kernels {t_auto:.2f} s, plain {t_plain:.2f} s; "
-            f"launches {launches[path]}")
-        e2e_share(path, pp, t_auto, summary)
+        log(f"{tag} 256^3: kernels {t_warm:.2f} s (warm graphs), plain "
+            f"{t_plain:.2f} s (first call, captures); launches "
+            f"{launches[path]}")
+        e2e_share(path, pp, t_warm, summary)
         check_launches(path, launches[path], expected)
         for f in (f_auto, f_plain):
             if tuple(f.shape) != (3, *SHAPE) or not bool(
@@ -2317,19 +2463,20 @@ def main() -> None:
             raise AssertionError(f"{path}: EPE {e_auto} vs plain {e_plain}, "
                                  f"limit {epe_limit}")
         del f_auto, f_plain, f, diff
-        if path in ("ladder256", "accurate", "packed"):
-            profile_split(torch, lambda: compute_flow(i0, i1, pp, device=dev))
-        torch.cuda.empty_cache()
+        graphs.clear()
 
     # 10. The two sweep layouts end to end, in turns on this card: host clock
     # around compute_flow from numpy volumes to a synchronized device.
     def wall(pp, label):
-        t0 = time.perf_counter()
+        """A warm call's wall time, after a first call (whose device peak
+        the model is held to) captured its graphs."""
         _, peak, base = device_peak(
             torch, dev, lambda: compute_flow(i0, i1, pp, device=dev))
-        t = time.perf_counter() - t0
         check_incore_model(label, SHAPE, pp, peak, base, summary)
-        return t
+        t0 = time.perf_counter()
+        compute_flow(i0, i1, pp, device=dev)
+        torch.cuda.synchronize(dev)
+        return time.perf_counter() - t0
 
     for flat, packed in (("ladder256", "packed"), ("gamma", "packed_gamma")):
         pf, pk = (PRESETS[PATHS[k][0]].replace(**PATHS[k][1])
@@ -2363,6 +2510,10 @@ def main() -> None:
     shard_phase(torch, i0, i1, true, mask, launches, summary)
     shard = summary.pop("shard")
     log("[shard] " + json.dumps(shard))
+
+    # 17. The compiled dispatch: graphed against eager.
+    graphs_phase(torch, i0, i1, summary)
+    log("[graphs] " + json.dumps(summary.pop("graphs")))
 
     def halo_entry(name):
         """K2/K5 in halo form: its launches on the sharded paths (both

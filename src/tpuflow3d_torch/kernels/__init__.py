@@ -39,7 +39,10 @@ plain flows drifted apart by up to 2e-3 at 256^3 (NVIDIA H100 80GB HBM3,
 
 ``LAUNCHES`` counts the launches of each kernel: each wrapper adds one
 where it launches, so a run can show that its main path went through the
-kernels.
+kernels. Under a CUDA graph (``graphs.py``) a wrapper runs at its
+segment's warm-up and capture, not at a replay: both are counted apart
+(``counted_apart``), and each replay adds the capture's launches
+(``add_launches``).
 """
 
 from __future__ import annotations
@@ -101,6 +104,26 @@ _SIGNATURES = {
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+@contextlib.contextmanager
+def counted_apart():
+    """Launches made inside are left out of ``LAUNCHES``; the dict it
+    yields receives them (kernel -> count) on exit."""
+    before = dict(LAUNCHES)
+    made = {}
+    try:
+        yield made
+    finally:
+        made.update({k: n - before[k] for k, n in LAUNCHES.items()
+                     if n != before[k]})
+        LAUNCHES.update(before)
+
+
+def add_launches(made: dict) -> None:
+    """Count launches made elsewhere (a CUDA graph's replay)."""
+    for name, n in made.items():
+        LAUNCHES[name] += n
 
 
 def _sources() -> list[Path]:

@@ -41,7 +41,7 @@ from tpuflow3d_torch.params import FlowParams
 from tpuflow3d_torch.pyramid import resize3
 from tpuflow3d_torch.solver import (SolveTerms, _DIRECTIONS, _face_masks,
                                     _neighbors6, _sym3_inverse, parity_mask,
-                                    sor_halfsweep)
+                                    relax_steps, sor_halfsweep)
 
 _MAX_MG_LEVELS = 8
 _COARSEST_MIN = 8  # stop coarsening once any dim would drop below ~4
@@ -233,6 +233,20 @@ def _vcycle(du, rhs, levels: list[MGLevel], li: int, p: FlowParams,
     return _smooth(du, lvl, rhs, p, p.mg_post, ctx)
 
 
+class VCycle(NamedTuple):
+    """One V-cycle on the hierarchy ``levels`` of a frozen system whose
+    fine right-hand side is ``c``, as a callable on du: multigrid's step in
+    ``solver.inner_system``, and a tensor tree that the compiled dispatch
+    keeps (``graphs.py``)."""
+    c: torch.Tensor
+    levels: list
+    p: FlowParams
+    ctx: HaloCtx
+
+    def __call__(self, du: torch.Tensor) -> torch.Tensor:
+        return _vcycle(du, self.c, self.levels, 0, self.p, self.ctx)
+
+
 def mg_solve(du, t: SolveTerms, p: FlowParams, ctx: HaloCtx = HaloCtx(),
              residuals_slot=None, slot_offset: int = 0):
     """Up to p.mg_cycles V-cycles on the frozen linear system ``t`` (c is
@@ -242,16 +256,6 @@ def mg_solve(du, t: SolveTerms, p: FlowParams, ctx: HaloCtx = HaloCtx(),
     cycle falls below it, one host sync per cycle. When ``residuals_slot``
     is given, each cycle's mean |update| is written into it in place at
     [slot_offset + cycle]."""
-    levels = build_mg_levels(t, p, ctx)
-    track = residuals_slot is not None
-    n_global = 3.0 * ctx.d_global(du.shape[-3]) * du.shape[-2] * du.shape[-1]
-    for k in range(p.mg_cycles):
-        du_new = _vcycle(du, t.c, levels, 0, p, ctx)
-        if track or p.residual_tol > 0.0:
-            delta = ctx.psum((du_new - du).abs().sum()) / n_global
-            if track:
-                residuals_slot[slot_offset + k] = delta
-        du = du_new
-        if p.residual_tol > 0.0 and not bool(delta > p.residual_tol):
-            break
-    return du
+    cycle = VCycle(t.c, build_mg_levels(t, p, ctx), p, ctx)
+    return relax_steps(cycle, du, p.mg_cycles, p, ctx, residuals_slot,
+                       slot_offset)

@@ -3,9 +3,13 @@
 Port of ``tpuflow3d.pipeline``: normalize -> presmooth ->
 build pyramids -> per level (coarse to fine) ``warps`` times: warp +
 derivatives -> inner solve -> median -> accumulate -> clamp; upsample
-between levels. PyTorch runs eagerly, so the reference's ``fori_loop``s
-are Python loops. On CUDA tensors (backend "auto" or "kernels") these
-run hand-written kernels:
+between levels. The reference's ``fori_loop``s are Python loops.
+``compute_flow_impl`` is the eager driver (the Z-sharded ranks and the
+streamed mode use it); ``compute_flow`` and ``compute_flow_checkpointed``
+run the same solve by segments (``graphs.py``), on a CUDA device captured
+once into CUDA graphs and replayed, as the reference compiles its solve
+once. On CUDA tensors (backend "auto" or "kernels") these run
+hand-written kernels:
 
 - warp + derivatives: K2 (trilinear) or K5 (tricubic) with
   ``deriv_order=2``; order 4 warps and differentiates in plain PyTorch
@@ -77,11 +81,23 @@ def warp_iteration(i0l, i1l, flow, p: FlowParams, ctx: HaloCtx, parity,
     Returns the flow; per-sweep residuals go into ``slot`` in place when
     it is given. The sweeps and the median run their kernels on CUDA
     tensors, the warp as ``warp_and_derivatives`` says."""
-    gamma = p.gamma > 0.0
-    g, it, i1w = warp_and_derivatives(i0l, i1l, flow, p, ctx, gamma)
-    gc = (grad_constancy_terms(i0l, i1w, ctx, order=p.deriv_order, g=g)
-          if gamma else None)
+    g, it, i1w = warp_and_derivatives(i0l, i1l, flow, p, ctx, p.gamma > 0.0)
+    gc = gc_terms(i0l, i1w, g, p, ctx)
     du = solve_increment(g, it, flow, p, ctx, parity, slot, gc=gc)
+    return accumulate(flow, du, p, ctx)
+
+
+def gc_terms(i0l, i1w, g, p: FlowParams, ctx: HaloCtx):
+    """The gradient-constancy terms of the warp with gamma > 0, else
+    None."""
+    if p.gamma > 0.0:
+        return grad_constancy_terms(i0l, i1w, ctx, order=p.deriv_order, g=g)
+    return None
+
+
+def accumulate(flow, du, p: FlowParams, ctx: HaloCtx):
+    """The end of a warp iteration: the increment's median, added to the
+    flow, clamped."""
     if p.median:
         du = median3_op(du, ctx, p)
     flow = flow + du
@@ -235,15 +251,21 @@ def compute_flow(i0, i1, params: FlowParams = FlowParams(), device=None,
     the same). Returns a (3, D, H, W) tensor on that device (displacements
     along z, y, x in voxels), plus a diagnostics dict when requested
     (per-sweep residual curves if params.track_residuals).
+
+    On a CUDA device the solve replays CUDA graphs (``graphs.py``): the
+    first call for a (params, shape, device) captures them, later calls
+    replay them, and ``graphs.clear()`` releases them and their memory.
     """
+    from tpuflow3d_torch import graphs
     i0, i1 = place_volumes(i0, i1, device)
     check_supported(params, i0)
     d = i0.shape[-3]
     i0, i1 = _pad_z(i0, i1, params.z_multiple)
-    out = compute_flow_impl(i0, i1, params, HaloCtx(), diagnostics)
+    flow, residuals = graphs.solve(i0, i1, params, diagnostics)
     if diagnostics:
-        return out[0][:, :d], out[1]
-    return out[:, :d]
+        return flow[:, :d], ({} if residuals is None
+                             else {"residuals": residuals})
+    return flow[:, :d]
 
 
 def compute_flow_checkpointed(i0, i1, params: FlowParams = FlowParams(),
@@ -255,12 +277,13 @@ def compute_flow_checkpointed(i0, i1, params: FlowParams = FlowParams(),
     its pyramid there re-enters the level loop at the saved level (one of
     another pyramid is ignored). Without ``checkpoint_dir`` it saves
     nothing. ``timer``: an optional ``utils.profiling.PhaseTimer``, given
-    the pyramid build and each level. Device placement as in
-    ``compute_flow``; returns the (3, D, H, W) flow tensor."""
+    the pyramid build and each level. Device placement and the CUDA
+    graphs as in ``compute_flow`` (the checkpoints are saved and the phases
+    timed between replays); returns the (3, D, H, W) flow tensor."""
+    from tpuflow3d_torch import graphs
     i0, i1 = place_volumes(i0, i1, device)
     check_supported(params, i0)
     d = i0.shape[-3]
     i0, i1 = _pad_z(i0, i1, params.z_multiple)
-    return compute_flow_impl(i0, i1, params, HaloCtx(),
-                             checkpoint_dir=checkpoint_dir,
-                             timer=timer)[:, :d]
+    return graphs.solve(i0, i1, params, checkpoint_dir=checkpoint_dir,
+                        timer=timer)[0][:, :d]

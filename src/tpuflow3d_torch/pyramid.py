@@ -157,6 +157,9 @@ def upsample_flow(flow: torch.Tensor, out_shape_global: tuple[int, int, int],
     in_shape = (flow.shape[-3] * ctx.n_shards, flow.shape[-2],
                 flow.shape[-1])
     up = resize3(flow, out_shape_global, ctx)
-    ratios = torch.tensor([out_shape_global[i] / in_shape[i] for i in range(3)],
-                          dtype=up.dtype, device=up.device).reshape(3, 1, 1, 1)
-    return up * ratios
+    # Each ratio rounded to float32 on the host, as a float32 tensor of them
+    # would hold it: no host data is copied to the device (a CUDA graph
+    # cannot capture that copy).
+    return torch.stack([up[i] * float(np.float32(out_shape_global[i]
+                                                 / in_shape[i]))
+                        for i in range(3)])

@@ -26,6 +26,12 @@ plain version of both. With
 plain version beside its wrapper. ``backend="plain"`` always sweeps flat
 and plain, and multigrid always smooths flat (K6).
 
+An inner iteration is a frozen system and its step (``inner_system``: a
+``FlatSweep``, a ``PackedSweep`` or, for multigrid, an ``mgsolver.VCycle``)
+applied ``sweeps`` (``mg_cycles``) times by ``relax_steps``; the compiled
+dispatch (``graphs.py``) captures the same pieces, split where the early
+stop reads ``relax_step``'s test on the host.
+
 ``terms_dtype="bfloat16"`` stores ``c`` and ``g`` in bfloat16 (storage
 only: every consumer widens them and computes in float32). ``SolveTerms``
 is then the reference's, ``smt`` of the unrounded g included; the rank-1
@@ -294,6 +300,58 @@ def jacobi_sweep(du: torch.Tensor, t: SolveTerms, omega: float,
     return (1.0 - omega) * du + omega * star
 
 
+class FlatSweep(NamedTuple):
+    """One red+black sweep (one Jacobi sweep) of the flat layout on the
+    frozen terms ``t``, as a callable on the iterate: ``solve_increment``'s
+    step, and a tensor tree that the compiled dispatch keeps (``graphs.py``).
+    ``parity`` is read by the plain sweeps only."""
+    t: SolveTerms
+    parity: torch.Tensor
+    p: FlowParams
+    ctx: HaloCtx
+
+    def __call__(self, du: torch.Tensor) -> torch.Tensor:
+        return flat_sweeps(du, self.t, self.p, self.ctx, self.parity, 1)
+
+
+class PackedSweep(NamedTuple):
+    """One red+black sweep in the colour-packed layout on the packed
+    constants of one inner iteration, as a callable on the (red, black)
+    pair of du: per colour ``head`` ((c, ainv) with gamma > 0, else (c,
+    g)), ``ps`` (psi_s), ``tail`` ((psi_d,) or ()), and psi_s's Z halo
+    planes (None, None on a whole volume)."""
+    head: tuple
+    ps: tuple
+    tail: tuple
+    ps_halos: tuple
+    p: FlowParams
+    ctx: HaloCtx
+
+    def __call__(self, pair):
+        """Both colours in turn through K4 or K7 (their plain versions for
+        CPU tensors)."""
+        if self.p.gamma > 0.0:
+            from tpuflow3d_torch.kernels.sor_gc_packed import (
+                sor_halfsweep_gc_packed as halfsweep)
+        else:
+            from tpuflow3d_torch.kernels.sor_packed import (
+                sor_halfsweep_packed as halfsweep)
+        p, ctx = self.p, self.ctx
+        d = pair[0].shape[-3]
+        z0, dg = int(ctx.z0(d)), ctx.d_global(d)
+        whole = ctx.is_whole(d)
+        pair = list(pair)
+        for col in (0, 1):
+            other = 1 - col
+            lo, hi = ((None, None) if whole
+                      else ctx.z_halo_planes(pair[other]))
+            pair[col] = halfsweep(
+                pair[col], pair[other], *self.head[col], self.ps[col],
+                self.ps[other], *self.tail[col], lo, hi,
+                *self.ps_halos[other], z0, p.alpha, p.omega, col, dg)
+        return tuple(pair)
+
+
 def _packed_sweeper(du: torch.Tensor, t: SolveTerms, p: FlowParams,
                     ctx: HaloCtx):
     """The colour-packed form of one inner iteration's sweeps: packs du and
@@ -301,40 +359,122 @@ def _packed_sweeper(du: torch.Tensor, t: SolveTerms, p: FlowParams,
     psi_s, psi_d)) once, an exact permutation amortized over p.sweeps
     sweeps, and fetches the psi_s halos once, or none on a whole volume
     (the kernels replicate its faces in place). Returns the packed (red,
-    black) pair of du and the function that runs one red+black sweep on
-    such a pair through K4 or K7 (their plain versions for CPU tensors)."""
+    black) pair of du and the ``PackedSweep`` that runs one red+black sweep
+    on such a pair."""
     from tpuflow3d_torch.kernels.sor_packed import pack_color
     d = du.shape[-3]
-    z0, dg = int(ctx.z0(d)), ctx.d_global(d)
-    if p.gamma > 0.0:
-        from tpuflow3d_torch.kernels.sor_gc_packed import (
-            sor_halfsweep_gc_packed as halfsweep)
-        fields = (t.c, t.ainv)
+    z0 = int(ctx.z0(d))
+    fields = (t.c, t.ainv) if p.gamma > 0.0 else (t.c, t.g)
+    head = tuple(tuple(pack_color(a, col, z0) for a in fields)
+                 for col in (0, 1))
+    ps = tuple(pack_color(t.psi_s, col, z0) for col in (0, 1))
+    tail = tuple(() if p.gamma > 0.0 else (pack_color(t.psi_d, col, z0),)
+                 for col in (0, 1))
+    ps_halos = tuple((None, None) if ctx.is_whole(d) else ctx.z_halo_planes(x)
+                     for x in ps)
+    return ((pack_color(du, 0, z0), pack_color(du, 1, z0)),
+            PackedSweep(head, ps, tail, ps_halos, p, ctx))
+
+
+def flat_sweeps(du: torch.Tensor, t: SolveTerms, p: FlowParams, ctx: HaloCtx,
+                parity: torch.Tensor, n: int) -> torch.Tensor:
+    """n sweeps of the flat layout: on the kernel route K1 (K6 with gamma >
+    0) takes all n in one call (out-of-place: the du passed in survives),
+    else the plain red-black or Jacobi sweeps."""
+    if p.solver == "sor" and use_kernels(p, du):
+        if p.gamma > 0.0:
+            from tpuflow3d_torch.kernels.sor_gc import sor_gc_sweeps
+            return sor_gc_sweeps(du, t, (p.alpha,) * 3, p.omega, n, ctx)
+        from tpuflow3d_torch.kernels.sor import sor_sweeps
+        return sor_sweeps(du, t, p.alpha, p.omega, n, ctx)
+    for _ in range(n):
+        if p.solver == "sor":
+            du = sor_halfsweep(du, t, p.omega, parity, 0, ctx)
+            du = sor_halfsweep(du, t, p.omega, parity, 1, ctx)
+        else:
+            du = jacobi_sweep(du, t, p.jacobi_omega(), ctx)
+    return du
+
+
+def sweeps_packed(p: FlowParams, w: int) -> bool:
+    """Whether SOR sweeps a level of width ``w`` colour-packed: with
+    ``sweep_layout == "packed"``, even W and a backend other than "plain",
+    on any device (the wrappers run K4/K7 for CUDA tensors and their plain
+    versions for CPU tensors). A level of odd W sweeps flat, as in the
+    reference; the reference's W >= 256 gate is about the TPU's 128-lane
+    tile and is not copied."""
+    return (p.solver == "sor" and p.sweep_layout == "packed"
+            and p.backend != "plain" and w % 2 == 0)
+
+
+def inner_system(g, it, flow, du, p: FlowParams, ctx: HaloCtx, parity,
+                 gc=None):
+    """One nonlinearity update at the iterate ``du``: (step, state).
+    ``step`` applies one sweep (one V-cycle for multigrid) of the frozen
+    system to ``state``, the iterate in the form it takes: du, or du's
+    colour pair in the packed layout (``iterate_du`` gives du back)."""
+    t = compute_terms(g, it, flow, du, p, ctx, gc=gc)
+    if p.solver == "multigrid":
+        from tpuflow3d_torch.mgsolver import VCycle, build_mg_levels
+        return VCycle(t.c, build_mg_levels(t, p, ctx), p, ctx), du
+    if sweeps_packed(p, it.shape[-1]):
+        state, step = _packed_sweeper(du, t, p, ctx)
+        return step, state
+    return FlatSweep(t, parity, p, ctx), du
+
+
+def iterate_du(state, ctx: HaloCtx) -> torch.Tensor:
+    """du from the state ``inner_system`` made: the colour pair unpacked."""
+    if isinstance(state, tuple):
+        from tpuflow3d_torch.kernels.sor_packed import unpack_colors
+        return unpack_colors(*state, int(ctx.z0(state[0].shape[-3])))
+    return state
+
+
+def update_norm(new, old, ctx: HaloCtx) -> torch.Tensor:
+    """Mean |new - old| over every component and voxel of the level (a
+    colour pair's two halves together)."""
+    if isinstance(new, tuple):
+        total = sum((a - b).abs().sum() for a, b in zip(new, old))
+        w = sum(a.shape[-1] for a in new)
     else:
-        from tpuflow3d_torch.kernels.sor_packed import (
-            sor_halfsweep_packed as halfsweep)
-        fields = (t.c, t.g)
-    # Per colour: the fields before psi_s, psi_s, the fields after it.
-    head = [[pack_color(a, col, z0) for a in fields] for col in (0, 1)]
-    ps = [pack_color(t.psi_s, col, z0) for col in (0, 1)]
-    tail = [[] if p.gamma > 0.0 else [pack_color(t.psi_d, col, z0)]
-            for col in (0, 1)]
-    whole = ctx.is_whole(d)
-    ps_halos = [(None, None) if whole else ctx.z_halo_planes(x) for x in ps]
+        total = (new - old).abs().sum()
+        w = new.shape[-1]
+    d, h = new[0].shape[-3], new[0].shape[-2]
+    return ctx.psum(total) / (3.0 * ctx.d_global(d) * h * w)
 
-    def one_sweep(pair):
-        pair = list(pair)
-        for col in (0, 1):
-            other = 1 - col
-            lo, hi = ((None, None) if whole
-                      else ctx.z_halo_planes(pair[other]))
-            pair[col] = halfsweep(
-                pair[col], pair[other], *head[col], ps[col], ps[other],
-                *tail[col], lo, hi, *ps_halos[other], z0, p.alpha, p.omega,
-                col, dg)
-        return tuple(pair)
 
-    return (pack_color(du, 0, z0), pack_color(du, 1, z0)), one_sweep
+def relax_step(step, state, p: FlowParams, ctx: HaloCtx):
+    """One sweep (V-cycle): (the new state, its mean |update|, whether the
+    early stop goes on). The stop test stays a device tensor: reading it
+    is the caller's host sync."""
+    new = step(state)
+    r = update_norm(new, state, ctx)
+    return new, r, r > p.residual_tol
+
+
+def relax_steps(step, state, n: int, p: FlowParams, ctx: HaloCtx,
+                residuals_slot=None, slot_offset: int = 0):
+    """Up to n sweeps (V-cycles) from ``state``. With the residual track
+    each one's mean |update| goes into residuals_slot[slot_offset + s];
+    with residual_tol > 0 they stop once it falls below the tolerance, one
+    host sync per sweep (cycle)."""
+    stop_test = p.residual_tol > 0.0
+    for s in range(n):
+        if residuals_slot is None and not stop_test:
+            state = step(state)
+            continue
+        state, r, more = relax_step(step, state, p, ctx)
+        if residuals_slot is not None:
+            residuals_slot[slot_offset + s] = r
+        if stop_test and not bool(more):
+            break
+    return state
+
+
+def inner_steps(p: FlowParams) -> int:
+    """Sweeps (V-cycles for multigrid) per nonlinearity update."""
+    return p.mg_cycles if p.solver == "multigrid" else p.sweeps
 
 
 def solve_increment(g: torch.Tensor, it: torch.Tensor, flow: torch.Tensor,
@@ -347,77 +487,23 @@ def solve_increment(g: torch.Tensor, it: torch.Tensor, flow: torch.Tensor,
     gradient-constancy terms, required exactly when p.gamma > 0; SOR then
     sweeps the general SPD system (K6, or K7 packed, on CUDA).
 
-    SOR sweeps colour-packed when ``p.sweep_layout == "packed"``, W is
-    even and the backend is not "plain", on any device: the wrappers run
-    K4/K7 for CUDA tensors and their plain versions for CPU tensors. A
-    level of odd W sweeps flat, as in the reference; the reference's
-    W >= 256 gate is about the TPU's 128-lane tile and is not copied.
-
-    With ``residual_tol`` > 0 the sweeps (cycles) of each inner iteration
-    stop once the mean update norm falls below it; the test costs one host
-    sync per sweep (cycle)."""
+    SOR sweeps colour-packed as ``sweeps_packed`` says. With
+    ``residual_tol`` > 0 the sweeps (cycles) of each inner iteration stop
+    once the mean update norm falls below it; the test costs one host
+    sync per sweep (cycle). The flat sweeps of an inner iteration that
+    neither stops early nor tracks residuals go to the kernels in one
+    call."""
     du = torch.zeros_like(flow)
-    track = residuals_slot is not None
-    n_global = 3.0 * ctx.d_global(it.shape[-3]) * it.shape[-2] * it.shape[-1]
-    kernel_sweeps = p.solver == "sor" and use_kernels(p, g)
-    packed = (p.solver == "sor" and p.sweep_layout == "packed"
-              and p.backend != "plain" and it.shape[-1] % 2 == 0)
-    if kernel_sweeps and not packed:
-        if p.gamma > 0.0:
-            from tpuflow3d_torch.kernels.sor_gc import sor_gc_sweeps
-        else:
-            from tpuflow3d_torch.kernels.sor import sor_sweeps
-
-    def flat_sweeps(du, t, n):
-        """n sweeps; the kernels take all n in one call (out-of-place: the
-        du passed in survives)."""
-        if kernel_sweeps:
-            if p.gamma > 0.0:
-                return sor_gc_sweeps(du, t, (p.alpha,) * 3, p.omega, n, ctx)
-            return sor_sweeps(du, t, p.alpha, p.omega, n, ctx)
-        for _ in range(n):
-            if p.solver == "sor":
-                du = sor_halfsweep(du, t, p.omega, parity, 0, ctx)
-                du = sor_halfsweep(du, t, p.omega, parity, 1, ctx)
-            else:
-                du = jacobi_sweep(du, t, p.jacobi_omega(), ctx)
-        return du
-
-    def mean_update(new, old):
-        """Mean |update| of a sweep; over the colour pair when packed."""
-        if packed:
-            total = sum((a - b).abs().sum() for a, b in zip(new, old))
-        else:
-            total = (new - old).abs().sum()
-        return ctx.psum(total) / n_global
-
+    one_call = (residuals_slot is None and p.residual_tol <= 0.0
+                and p.solver != "multigrid"
+                and not sweeps_packed(p, it.shape[-1]))
     for k in range(p.inner_iterations):
-        t = compute_terms(g, it, flow, du, p, ctx, gc=gc)
-        if p.solver == "multigrid":
-            from tpuflow3d_torch.mgsolver import mg_solve
-            du = mg_solve(du, t, p, ctx, residuals_slot, k * p.sweeps)
+        if one_call:
+            t = compute_terms(g, it, flow, du, p, ctx, gc=gc)
+            du = flat_sweeps(du, t, p, ctx, parity, p.sweeps)
             continue
-        if packed:
-            state, one_sweep = _packed_sweeper(du, t, p, ctx)
-        elif not (track or p.residual_tol > 0.0):
-            du = flat_sweeps(du, t, p.sweeps)
-            continue
-        else:
-            # The early stop and the residual track compare each sweep with
-            # the one before: one sweep at a time.
-            state, one_sweep = du, lambda x: flat_sweeps(x, t, 1)
-        for s in range(p.sweeps):
-            new = one_sweep(state)
-            if track or p.residual_tol > 0.0:
-                r = mean_update(new, state)
-                if track:
-                    residuals_slot[k * p.sweeps + s] = r
-            state = new
-            if p.residual_tol > 0.0 and not bool(r > p.residual_tol):
-                break
-        if packed:
-            from tpuflow3d_torch.kernels.sor_packed import unpack_colors
-            du = unpack_colors(*state, int(ctx.z0(du.shape[-3])))
-        else:
-            du = state
+        step, state = inner_system(g, it, flow, du, p, ctx, parity, gc)
+        state = relax_steps(step, state, inner_steps(p), p, ctx,
+                            residuals_slot, k * p.sweeps)
+        du = iterate_du(state, ctx)
     return du

@@ -807,3 +807,62 @@ def test_bandwidth_probe_passes_its_checks(dev):
     bw = roofline.measure_hbm_bw(device=dev)
     assert 0 < bw <= roofline.device_hbm_bw(dev)
     assert roofline.minmax_rate(dev) > 0
+
+
+@pytest.mark.parametrize("name", ["ladder256", "accurate"])
+def test_graphed_flow_is_the_eager_flow(dev, name):
+    """compute_flow on the card replays CUDA graphs (graphs.py): at 64^3 its
+    flow is bitwise the eager compute_flow_impl's, with the same launches
+    of each kernel; a second call captures nothing new; a new shape drops
+    the old entry, and graphs.clear() drops them all."""
+    from tpuflow3d_torch import graphs, pipeline
+    p = PRESETS[name]
+    shape = (64, 64, 64)
+    i0, i1, _ = syn.make_pair(shape, syn.translation((1.5, -1.0, 0.75)))
+    graphs.clear()
+    kernels.reset_launches()
+    got = compute_flow(i0, i1, p, device=dev)
+    graphed = dict(kernels.LAUNCHES)
+    kernels.reset_launches()
+    want = pipeline.compute_flow_impl(torch.as_tensor(i0, device=dev),
+                                      torch.as_tensor(i1, device=dev), p,
+                                      HaloCtx())
+    assert graphed == kernels.LAUNCHES
+    assert torch.equal(got, want)
+    (info,) = graphs.entries().values()
+    assert info["captures"] == info["graphs"] > 0
+    again = compute_flow(i0, i1, p, device=dev)
+    assert torch.equal(again, got)
+    (info2,) = graphs.entries().values()
+    assert info2["captures"] == info["captures"]
+    assert info2["replays"] == 2 * info["replays"]
+    compute_flow(i0[:, :, :32], i1[:, :, :32], p, device=dev)
+    (key,) = graphs.entries()
+    assert key[1] == (64, 64, 32)
+    graphs.clear()
+    assert graphs.entries() == {}
+
+
+def test_a_capture_that_fails_raises(dev, monkeypatch):
+    """An operation a CUDA graph cannot capture (a host read), planted in a
+    segment, raises: nothing runs eagerly in its place, the entry is
+    dropped, and the next call captures and runs."""
+    from tpuflow3d_torch import graphs
+    real = graphs._upsample
+
+    def planted(flow, shape, p):
+        flow.sum().item()
+        return real(flow, shape, p)
+
+    p = FlowParams(levels=2, warps=1, inner_iterations=1, sweeps=2)
+    i0, i1, _ = syn.make_pair((32, 32, 32), syn.translation((1.0, 0.5, 0.0)))
+    graphs.clear()
+    monkeypatch.setattr(graphs, "_upsample", planted)
+    with pytest.raises(RuntimeError):
+        compute_flow(i0, i1, p, device=dev)
+    assert graphs.entries() == {}
+    assert torch.cuda.current_stream(dev) == torch.cuda.default_stream(dev)
+    monkeypatch.setattr(graphs, "_upsample", real)
+    flow = compute_flow(i0, i1, p, device=dev)
+    assert bool(torch.isfinite(flow).all())
+    graphs.clear()

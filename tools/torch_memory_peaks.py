@@ -5,7 +5,10 @@
     python3 tools/torch_memory_peaks.py [--out build/memory_peaks.json]
 
 For each configuration, in-core (``compute_flow``, two warps: the peak is
-reached from the second warp on) at 256^3 and, for the heaviest, 512^3;
+reached from the second warp on; its first call on the card, which
+captures the CUDA graphs of ``graphs.py``, no graphs held before it, with
+the entry's static and pool bytes after it) at 256^3 and, for the
+heaviest, 512^3;
 then streamed (``compute_flow_piecewise``, one warp over two levels: the
 peak is the finest level's) at 256^3 with chunks of 32 and 128 planes:
 the allocated peak (``torch.cuda.max_memory_allocated`` beyond what was
@@ -13,7 +16,8 @@ allocated before the run, the cache emptied first), the reserved peak,
 and the model's bytes (``incore_peak_bytes`` / ``streamed_peak_bytes``).
 Inputs are a smoothed random volume and its shift, made on the card from
 a seed. One JSON line per run; exits 1 if the model is below an allocated
-peak. Needs a CUDA device; imports nothing of JAX.
+peak, or below what an in-core run's graphs hold after it (static and pool
+bytes). Needs a CUDA device; imports nothing of JAX.
 
 ``--phases`` measures instead what the streamed model is made of: each
 phase function of ``piecewise`` (``_ph_*``) wrapped to record the
@@ -48,7 +52,7 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_memory_peaks.py: no CUDA device")
-    from tpuflow3d_torch import PRESETS, compute_flow, kernels
+    from tpuflow3d_torch import PRESETS, compute_flow, graphs, kernels
     from tpuflow3d_torch.piecewise import compute_flow_piecewise
     from tpuflow3d_torch.utils import memory as mem
 
@@ -68,6 +72,7 @@ def main() -> int:
         return x.cpu().numpy(), i1.cpu().numpy()
 
     def peak(run):
+        graphs.clear()
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated(dev)
@@ -122,7 +127,8 @@ def main() -> int:
     def record(row):
         print(json.dumps(row), flush=True)
         rows.append(row)
-        if row["model_bytes"] < row["peak_bytes"]:
+        if row["model_bytes"] < max(row["peak_bytes"],
+                                    row.get("graph_held_bytes", 0)):
             under.append(row)
 
     for n, configs in ((256, incore), (512, big)):
@@ -130,8 +136,13 @@ def main() -> int:
         for name, p in configs.items():
             p = p.replace(warps=2)
             a, r, s = peak(lambda: compute_flow(i0, i1, p, device=dev))
+            (entry,) = graphs.entries().values()
             record({"run": "incore", "config": name, "n": n,
                     "peak_bytes": a, "reserved_bytes": r, "seconds": s,
+                    "graph_static_bytes": entry["static_bytes"],
+                    "graph_pool_bytes": entry["pool_bytes"],
+                    "graph_held_bytes": entry["static_bytes"]
+                    + entry["pool_bytes"],
                     "model_bytes": mem.incore_peak_bytes((n,) * 3, p)})
         del i0, i1
     i0, i1 = pair(256)
