@@ -73,12 +73,15 @@
    packed, flat; three turns; each a warm graphed call after a first call
    that captured), with and without gamma, and prints the median of each.
 11-14. The out-of-core mode, ``piecewise.compute_flow_piecewise`` with
-   64-plane chunks. Before each path runs, ``[window:<path>]`` holds the
+   64-plane chunks, its slab phases replayed from CUDA graphs
+   (``graphs.stream_runner``; each run's first call, no graphs held before
+   it, captures them). Before each path runs, ``[window:<path>]`` holds the
    kernels in the forms that path gives them, on every level of its own
    pyramid: K2/K5 on its warp slab, K1/K6 one colour on its trapezoid or
-   fused slab (its omega, its system: the terms made by its own phases),
-   K3 on its median slab (the fused pass's clamped-global gather), each at
-   its first, an interior and its last z0, bitwise against the plain
+   fused slab (its omega, its system: the terms made by its own phases), K3
+   on its median slab (the fused pass's clamped-global gather), each at its
+   first, an interior and its last z0, K2/K5 and K1/K6 with the origin an
+   int and in device memory (the graphed form), bitwise against the plain
    version, and timed beside the bound on the finest level; the run then
    records every form it launches and fails if one was not held so.
    ``ladder256`` (flow clamp 4) through the kernels against plain (exactly
@@ -87,11 +90,14 @@
    inner iteration, the fused pass against the phases, their gap at 64^3,
    128^3 and 256^3, and a fault planted in the fused pass that the gate
    must reject (``[stream:fused]``); ``ladder512`` at 512^3, the full
-   width, the pair made on the card, against in-core, with the phase
-   times, both device peaks and the host's memory
-   (``[stream:ladder512]``); ``accurate`` at 256^3 against in-core
-   (``[stream:accurate]``). The streamed-vs-in-core gate is the JAX
-   package's (max |diff| < 5e-2, mean < 1e-2, |dEPE| < 0.02).
+   width, the pair made on the card, against in-core, with the phase times,
+   both device peaks and the host's memory (``[stream:ladder512]``, graphed
+   only); ``accurate`` at 256^3 against in-core (``[stream:accurate]``).
+   ``ladder256`` and the fused pass are each held bitwise to the eager
+   streamed run (``eager=True``: the phases called directly, the origins
+   Python ints), with equal launches; ``accurate`` in phase 18. The
+   streamed-vs-in-core gate is the JAX package's (max |diff| < 5e-2, mean
+   < 1e-2, |dEPE| < 0.02).
 15. The command line, ``tpuflow3d_torch.cli``, at 256^3 (``[15:cli]``):
    frames i0, i1, i0 written as uint16 raws with sidecars (the native IO
    library required); the series with tracking, derived fields, VTK,
@@ -101,10 +107,11 @@
    through ``python -m tpuflow3d_torch.cli`` as a process (bitwise pair
    0); auto mode under a 1 GiB budget (``TPUFLOW_DEVICE_BYTES``, and the
    caching allocator capped at it) for ``ladder256`` and ``accurate``:
-   first the window forms of ``pick_chunk_z``'s chunk (48 and 43, the
-   last chunk ragged) bitwise against plain, then the run, piecewise with
-   that chunk, every form it launched held so, the device peak within
-   the budget, the streamed-vs-in-core gate; ``--apply-flow`` bitwise
+   first the window forms of ``pick_chunk_z``'s chunk (the streamed
+   graphs' arena counted; the last chunk ragged) bitwise against plain,
+   then the run, piecewise and graphed with that chunk, every form it
+   launched held so, the device peak and reserved bytes within the
+   budget, the streamed-vs-in-core gate; ``--apply-flow`` bitwise
    ``warp_volume`` and no kernel launched; ``--check-consistency``
    (exactly K1 1800, K2 30, K3 30).
 16. The Z-sharded paths (``[16:shard]``): two ranks spawned on cuda:0,
@@ -136,17 +143,30 @@
 17. The compiled dispatch (``[17:graphs]``), for ``ladder256`` and
    ``accurate`` at 256^3: the first graphed call's wall and capture
    seconds; warm graphed calls against eager ``compute_flow_impl`` calls in
-   turns (graphed, eager, eager, graphed; twice); the busy share and the
+   turns (graphed, eager, eager, graphed); the busy share and the
    device activities of one graphed and one eager call under the profiler;
    the entry's static and pool bytes; ``graphs.clear()`` must bring the
    allocated bytes back within 64 MiB of their level before the first call.
+
+18. The streamed mode's graphs (``[18:stream-graphs]``), for
+   ``stream:ladder256`` and ``stream:fused`` at 256^3: the first graphed
+   call (captures at most one graph per (pass, level): ``graph_bound``),
+   then warm graphed calls against eager ones in turns, medians of 3, every
+   flow bitwise the first with equal launches, none captured anew;
+   ``stream:accurate`` phase 14's graphed call (its host split taken there)
+   and one eager (its witness). Each call's wall and its host split:
+   seconds in ``_Stager.put`` (gather and enqueue), the phase calls
+   (replays, or the eager launches), ``get``, ``wait`` and ``store`` (timed
+   by wrapping them here), the entry's captures, replays, static and pool
+   bytes.
 
 Every in-core run through the kernels (phases 4-10, 12-15; graphed, its
 first call, which captures, and in phases 4-9 the eager witness too)
 prints its device peak (``torch.cuda.max_memory_allocated`` beyond what
 was allocated before it) beside ``utils.memory.incore_peak_bytes``, and
-every streamed run its peak beside ``utils.memory.streamed_peak_bytes`` for
-its chunk (``[mem]``); each fails if the model is below the peak.
+every streamed run its peak and what its graphs hold beside
+``utils.memory.streamed_peak_bytes`` for its chunk (``[mem]``); each fails
+if the model is below the peak or the graphs' bytes.
 
 Every failure raises, so the exit code is non-zero. The last two lines are
 a JSON summary of the kernels (K2 and K5 in halo form as entries of their
@@ -452,7 +472,7 @@ def profile_split(torch, run) -> dict:
 # Phase 17: the graphed compute_flow of these paths against the eager
 # compute_flow_impl, in turns of (graphed, eager, eager, graphed).
 GRAPH_PATHS = ("ladder256", "accurate")
-GRAPH_TURNS = 2
+GRAPH_TURNS = 1
 # What graphs.clear() may leave allocated beyond the level before the call.
 GRAPH_CLEAR_SLACK = 64 << 20
 
@@ -532,6 +552,176 @@ def graphs_phase(torch, i0, i1, summary) -> None:
                                  f"call")
 
 
+# Phase 18: the streamed mode graphed against eager. These paths in turns of
+# (graphed, eager, eager, graphed, graphed, eager) after a first graphed
+# call; stream:accurate (~50-60 s a call) phase 14's graphed call and one
+# eager.
+STREAM_GRAPH_PATHS = ("stream:ladder256", "stream:fused")
+STREAM_GRAPH_TURNS = ("graphed", "eager", "eager", "graphed", "graphed",
+                      "eager")
+
+
+@contextlib.contextmanager
+def host_split(into: dict):
+    """For the length of the block, the host seconds of a streamed run's
+    staging and phase calls, each without the calls inside it, added into
+    ``into``: ``put`` (the slab gathered into page-locked memory and its
+    copy enqueued), ``phase`` (the origins filled and the graph replayed,
+    or the phase's launches; its first call's warm-up and capture too),
+    ``get`` (a result's copy back enqueued), ``wait`` (for a copy back)
+    and ``store`` (the result written into the host array)."""
+    from tpuflow3d_torch import graphs
+    from tpuflow3d_torch import piecewise as pw
+
+    targets = [(pw._Stager, "put", "put"), (pw._Stager, "get", "get"),
+               (pw._Stager, "wait", "wait"), (pw._Stager, "store", "store"),
+               (graphs._StreamPhase, "__call__", "phase"),
+               (graphs._DirectPhase, "__call__", "phase")]
+    stack = []
+
+    def wrap(fn, name):
+        def timed(*a, **k):
+            stack.append(0.0)
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                dt = time.perf_counter() - t0
+                inner = stack.pop()
+                into[name] = into.get(name, 0.0) + dt - inner
+                if stack:
+                    stack[-1] += dt
+        return timed
+
+    saved = [(cls, attr, cls.__dict__[attr]) for cls, attr, _ in targets]
+    for (cls, attr, name), (_, _, raw) in zip(targets, saved):
+        if isinstance(raw, staticmethod):
+            setattr(cls, attr, staticmethod(wrap(raw.__func__, name)))
+        else:
+            setattr(cls, attr, wrap(raw, name))
+    try:
+        yield into
+    finally:
+        for cls, attr, raw in saved:
+            setattr(cls, attr, raw)
+
+
+def graph_bound(p, shape, chunk: int) -> int:
+    """The streamed passes of one ``compute_flow_piecewise`` call, each
+    (pass, level) once: every pass of ``level_plan`` on every level, the
+    presmoothing, the pyramid's downsampling and the flow's upsampling
+    between levels and, on a multigrid level, the restriction of psi_s,
+    d6 and the residual, the prolongation and the coarse V-cycle. A
+    streamed entry captures at most that many graphs (the JAX package's
+    compile count)."""
+    from tpuflow3d_torch.mgsolver import mg_shapes
+    from tpuflow3d_torch.piecewise import DEFAULT_FLOW_CLAMP, level_plan
+    if p.flow_clamp <= 0:
+        p = p.replace(flow_clamp=DEFAULT_FLOW_CLAMP)
+    shapes = p.level_shapes(tuple(shape))
+    n = (1 if p.presmooth_sigma > 0 else 0) + 2 * (len(shapes) - 1)
+    for shp in shapes:
+        n += len(level_plan(p, shp, chunk))
+        if p.solver == "multigrid" and len(mg_shapes(tuple(shp), 1)) > 1:
+            n += 5
+    return n
+
+
+def stream_graphs_phase(torch, i0, i1, summary) -> None:
+    """Phase 18 (``[18:stream-graphs]``): for STREAM_GRAPH_PATHS and
+    stream:accurate at 256^3, chunks of STREAM_CHUNK: the first graphed
+    call (no graphs held before it) with its capture seconds, captures
+    (at most ``graph_bound``), replays, static and pool bytes; then warm
+    graphed calls against eager ones in turns (STREAM_GRAPH_TURNS), every
+    flow bitwise the first with the same launches, no graph captured
+    anew; each call's wall on the host clock to a synchronized device and
+    its host split (``host_split``), the medians printed. stream:accurate
+    (~50-60 s a call) takes phase 14's run (``summary["stream_first"]``)
+    as its first graphed call, and runs one eager call, its witness."""
+    from tpuflow3d_torch import PRESETS, graphs, kernels
+    from tpuflow3d_torch.piecewise import compute_flow_piecewise
+
+    dev = torch.device("cuda", 0)
+    tag = "[18:stream-graphs]"
+    res = summary["stream_graphs"] = {"card": gpu_name_and_power_limit()}
+
+    def run(pp, eager):
+        split = {}
+        kernels.reset_launches()
+        with host_split(split):
+            t0 = time.perf_counter()
+            f = compute_flow_piecewise(i0, i1, pp, chunk_z=STREAM_CHUNK,
+                                       device=dev, eager=eager)
+            torch.cuda.synchronize(dev)
+            split["wall"] = time.perf_counter() - t0
+        split["other"] = split["wall"] - sum(v for k, v in split.items()
+                                             if k != "wall")
+        return f, split, dict(kernels.LAUNCHES)
+
+    def fmt(split):
+        return ", ".join(f"{k} {split.get(k, 0.0):.3f}" for k in (
+            "wall", "put", "phase", "get", "wait", "store", "other"))
+
+    earlier = summary.pop("stream_first")
+    for path in (*STREAM_GRAPH_PATHS, "stream:accurate"):
+        preset, changes, _, _ = STREAM_PATHS[path]
+        pp = PRESETS[preset].replace(**changes)
+        if path in STREAM_GRAPH_PATHS:
+            graphs.clear()
+            f0, first, n0 = run(pp, False)
+            (cold,) = graphs.entries().values()
+            turns, runs = STREAM_GRAPH_TURNS, {"graphed": [], "eager": []}
+        else:
+            f0, first, n0, cold = (earlier[path][k] for k in (
+                "flow", "split", "launches", "entry"))
+            first["other"] = first["wall"] - sum(
+                v for k, v in first.items() if k != "wall")
+            turns, runs = ("eager",), {"graphed": [first], "eager": []}
+        bound = graph_bound(pp, i0.shape, STREAM_CHUNK)
+        if not cold["captures"] == cold["graphs"] <= bound:
+            raise AssertionError(f"{tag} {path}: {cold['captures']} captures "
+                                 f"of {cold['graphs']} graphs, at most "
+                                 f"{bound} (pass, level) pairs")
+        for kind in turns:
+            f, split, n = run(pp, kind == "eager")
+            if not np.array_equal(f, f0) or n != n0:
+                raise AssertionError(f"{tag} {path}: a {kind} call's flow or "
+                                     f"launches ({n}) differ from the first "
+                                     f"graphed one's ({n0})")
+            runs[kind].append(split)
+        # (stream:accurate's entry went with the phases after phase 14.)
+        info = next(iter(graphs.entries().values()), cold)
+        if info["captures"] != cold["captures"]:
+            raise AssertionError(f"{tag} {path}: warm calls captured "
+                                 f"{info['captures'] - cold['captures']} "
+                                 f"graphs")
+        med = {kind: {k: statistics.median(s.get(k, 0.0) for s in ss)
+                      for k in ss[0]} for kind, ss in runs.items()}
+        res[path] = {
+            "launches": n0, "first_call": first,
+            "capture_s": cold["capture_seconds"],
+            "graphs": cold["graphs"], "captures": info["captures"],
+            "bound": bound, "replays": info["replays"],
+            "warmup_launches": cold["warmup_launches"],
+            "static_bytes": info["static_bytes"],
+            "pool_bytes": info["pool_bytes"], "runs": runs,
+            "median": med}
+        log(f"{tag} {elapsed()} {path}: launches {n0}, equal in every "
+            f"call, every flow bitwise the first; first graphed call "
+            f"{fmt(first)} s "
+            f"({cold['captures']} captures of at most {bound} (pass, level) "
+            f"pairs, captured in {cold['capture_seconds']:.3f} s); static "
+            f"{info['static_bytes'] / 2 ** 30:.3f} GiB, pool "
+            f"{info['pool_bytes'] / 2 ** 30:.3f} GiB; {info['replays']} "
+            f"replays in all, none captured after the first call")
+        for kind in ("graphed", "eager"):
+            log(f"{tag} {path}: {kind} (median of {len(runs[kind])}: "
+                f"{', '.join(f'{s['wall']:.3f}' for s in runs[kind])} s) "
+                f"{fmt(med[kind])} s")
+        graphs.clear()
+        torch.cuda.empty_cache()
+
+
 def check_launches(label: str, launches: dict, expected: dict) -> None:
     """Raise unless exactly the expected kernels launched, each as often as
     given (None: any count above 0)."""
@@ -552,22 +742,34 @@ def recording_forms(forms: set, sharded: bool = False):
     shape, omega) for a flat sweep, (kernel, slab shape, emit) for a warp,
     (kernel, packed shape) for a packed half-sweep, (kernel, shape) for
     the median. The streamed mode calls K1 and K6 one colour at a time
-    (``sor_halfsweep``, ``sor_halfsweep_gc``); a sharded run (``sharded``)
-    calls them through ``sor_sweeps``/``sor_gc_sweeps``, and K4/K7. The
-    wrapped functions count their launches as before; the callers import
-    the wrappers at the call."""
+    (``sor_halfsweep``, ``sor_halfsweep_gc``), and the key of a warp or a
+    sweep ends with whether its window's origin is a device tensor (a
+    graphed slab) or an int; a sharded run (``sharded``) calls them
+    through ``sor_sweeps``/``sor_gc_sweeps``, and K4/K7. The wrapped
+    functions count their launches as before; the callers import the
+    wrappers at the call."""
+    import torch
+
     from tpuflow3d_torch.kernels import median3 as m3, sor as k1, sor_gc as k6
     from tpuflow3d_torch.kernels import sor_gc_packed as k7, sor_packed as k4
     from tpuflow3d_torch.kernels import warp_grad as kw
 
+    def origin(key, ctx):
+        if sharded:
+            return key
+        return (*key, isinstance(getattr(ctx, "window_z0", None),
+                                 torch.Tensor))
+
     def warp_key(i1, flow, i0, ctx=None, interp="trilinear",
                  emit_warped=False, **_):
         name = "warp_grad_tricubic" if interp == "tricubic" else "warp_grad"
-        return name, tuple(i1.shape), bool(emit_warped)
+        return origin((name, tuple(i1.shape), bool(emit_warped)), ctx)
 
     def sweep(name):
-        return lambda du, t, alpha, omega, *_, **__: (
-            name, tuple(du.shape), float(omega))
+        def key(du, t, alpha, omega, *rest, ctx=None, **_):
+            ctx = rest[1] if len(rest) > 1 else ctx
+            return origin((name, tuple(du.shape), float(omega)), ctx)
+        return key
 
     def packed(name):
         return lambda du, *_, **__: (name, tuple(du.shape))
@@ -637,10 +839,13 @@ def window_phase(torch, label, p, pyr0, pyr1, summary, checked: set,
     own phases (``_ph_terms``/``_ph_terms_gc``/``_ph_terms_mg``, then
     ``_slab_terms`` or ``assemble_fine_system``). Each must be bitwise
     equal to its plain version on the same inputs; the forms go into
-    ``checked``. On the finest level, at the interior z0, each is timed
-    beside its bound. ``all_forms`` adds, on the finest level, K5 and K2
-    with and without the warped volume and K6 on gradient-constancy terms
-    on the same slabs."""
+    ``checked``. K2/K5 and K1/K6 run twice: with the origin an int (the
+    eager launch) and in a 0-d int32 tensor on the device (a graphed slab,
+    which reads it from device memory), each bitwise the plain version. On
+    the finest level, at the interior z0, each is timed beside its bound
+    (the device-origin launch too). ``all_forms`` adds, on the finest
+    level, K5 and K2 with and without the warped volume and K6 on
+    gradient-constancy terms on the same slabs."""
     from tpuflow3d_torch.grid import HaloCtx
     from tpuflow3d_torch.kernels.median3 import median3 as k_median3
     from tpuflow3d_torch.kernels.sor import sor_halfsweep as k_sor
@@ -677,17 +882,24 @@ def window_phase(torch, label, p, pyr0, pyr1, summary, checked: set,
                                  f"equal to plain")
         n_checked += 1
 
-    def timed(name, what, kern, plain, nbytes, elements, key):
+    def timed(name, what, kern, plain, nbytes, elements, key,
+              kern_dev=None):
+        """Time the kernel (and its device-origin launch ``kern_dev``,
+        where the form has an origin) and the plain version."""
         ms, plain_ms = cuda_ms(torch, kern), cuda_ms(torch, plain)
+        dev_ms = None if kern_dev is None else cuda_ms(torch, kern_dev)
         b, b_probed = (roofline.bound(name, nbytes, elements, bw=ROOFLINE[k],
                                       rates=ROOFLINE["rates"])
                        for k in ("sheet_bw", "probed_bw"))
-        log(f"[window:{label}] {what}: kernel {ms:.3f} ms, plain "
+        dev_txt = ("" if dev_ms is None else
+                   f" ({dev_ms:.3f} ms with the origin in device memory)")
+        log(f"[window:{label}] {what}: kernel {ms:.3f} ms{dev_txt}, plain "
             f"{plain_ms:.3f} ms, bound {b['bound_ms']:.3f} ms by "
             f"{b['bound_by']} ({b_probed['bound_ms']:.3f} at the probed "
             f"rate)")
         summary[name].setdefault("window", {})[f"{label} {key}"] = {
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
+            "ms": ms, "ms_device_origin": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": b["bound_ms"],
             "bound_probed_ms": b_probed["bound_ms"]}
 
     for li, (v0, v1) in enumerate(zip(pyr0, pyr1)):
@@ -703,6 +915,10 @@ def window_phase(torch, label, p, pyr0, pyr1, summary, checked: set,
             n = planes * h * w
             for z0 in dict.fromkeys((zs[0], mid, zs[-1])):
                 wctx = HaloCtx(window_z0=z0, window_d_global=dg)
+                # The same window with its origin in device memory.
+                dctx = HaloCtx(window_z0=torch.tensor(z0, dtype=torch.int32,
+                                                      device=dev),
+                               window_d_global=dg)
                 at = f"{planes}x{h}x{w} z0={z0}"
                 time_it = li == 0 and z0 == mid
                 i0s, i1s = cut(v0, z0, planes), cut(v1, z0, planes)
@@ -715,8 +931,8 @@ def window_phase(torch, label, p, pyr0, pyr1, summary, checked: set,
                         name = ("warp_grad_tricubic" if interp == "tricubic"
                                 else "warp_grad")
 
-                        def kern():
-                            return k_warp_grad(i1s, fls, i0s, wctx,
+                        def kern(ctx=wctx):
+                            return k_warp_grad(i1s, fls, i0s, ctx,
                                                interp=interp,
                                                emit_warped=emit)
 
@@ -727,11 +943,14 @@ def window_phase(torch, label, p, pyr0, pyr1, summary, checked: set,
 
                         what = f"{name} {at}{', emit' if emit else ''}"
                         same(what, kern(), plain())
-                        checked.add((name, (planes, h, w), emit))
+                        same(f"{what} (device origin)", kern(dctx), plain())
+                        checked.update((name, (planes, h, w), emit, o)
+                                       for o in (False, True))
                         if time_it:
                             timed(name, what, kern, plain,
                                   4 * n * (5 + (5 if emit else 4)), n,
-                                  f"{at}{'/emit' if emit else ''}")
+                                  f"{at}{'/emit' if emit else ''}",
+                                  lambda: kern(dctx))
                 elif kind == "sweep":
                     omega, system = detail
                     fls = rand((3, planes, *hw), 1.0, uniform=True)
@@ -762,12 +981,12 @@ def window_phase(torch, label, p, pyr0, pyr1, summary, checked: set,
                                 else "sor_gc")
                         parity = parity_mask((planes, h, w), wctx, dev)
                         for color in (0, 1):
-                            def kern(color=color, t=t):
+                            def kern(color=color, t=t, ctx=wctx):
                                 if name == "sor_halfsweep":
                                     return k_sor(du, t, p.alpha, omega,
-                                                 color, wctx)
+                                                 color, ctx)
                                 return k_sor_gc(du, t, (p.alpha,) * 3, omega,
-                                                color, wctx)
+                                                color, ctx)
 
                             def plain(color=color, t=t):
                                 return sor_halfsweep(du, t, omega, parity,
@@ -776,13 +995,18 @@ def window_phase(torch, label, p, pyr0, pyr1, summary, checked: set,
                             what = (f"{name} ({sysname}, omega {omega}) {at} "
                                     f"colour {color}")
                             same(what, kern(), plain())
+                            same(f"{what} (device origin)", kern(ctx=dctx),
+                                 plain())
                             if time_it:
                                 # The arguments, the output, 4 halo planes.
                                 timed(name, what, kern, plain,
                                       tensor_bytes(du, *fields)
                                       + tensor_bytes(du) + 16 * h * w, n // 2,
-                                      f"{at}/colour{color}")
-                        checked.add((name, (3, planes, h, w), float(omega)))
+                                      f"{at}/colour{color}",
+                                      lambda k=kern: k(ctx=dctx))
+                        checked.update((name, (3, planes, h, w),
+                                        float(omega), o)
+                                       for o in (False, True))
                         del t, fields
                 else:
                     x = torch.round(rand((3, planes, *hw), 4.0)) / 80.0
@@ -911,21 +1135,30 @@ def check_incore_model(label, shape, p, peak, base, summary) -> None:
 
 
 def log_streamed_model(label, shape, p, chunk, peak, base, summary) -> None:
-    """Print a streamed run's device peak beside the footprint the model of
-    pick_chunk_z gives for its chunk; raise if the model is below it (the
-    chunk pick_chunk_z chooses would then run out of memory)."""
+    """Print a streamed run's device peak and what its graphs hold after it
+    (``graphs.entries``: static and pool bytes) beside the footprint the
+    model of pick_chunk_z gives for its chunk; raise if the model is below
+    either (the chunk pick_chunk_z chooses would then run out of
+    memory)."""
+    from tpuflow3d_torch import graphs
     from tpuflow3d_torch.utils import memory as mem
     model = mem.streamed_peak_bytes(shape, p, chunk)
+    held = sum(e["static_bytes"] + e["pool_bytes"]
+               for e in graphs.entries().values())
+    held_txt = (f"graphs hold {held / 2 ** 30:.3f} GiB" if held else
+                "no graphs held")
     log(f"[mem] {label} streamed {shape}, chunks of {chunk}: device peak "
         f"{peak / 2 ** 30:.3f} GiB (beyond {base / 2 ** 30:.3f} GiB "
-        f"allocated before), model {model / 2 ** 30:.3f} GiB, model/peak "
-        f"{model / peak:.3f}")
+        f"allocated before), {held_txt}, model {model / 2 ** 30:.3f} GiB, "
+        f"model/peak {model / peak:.3f}"
+        + (f", model/held {model / held:.3f}" if held else ""))
     summary.setdefault("memory", {}).setdefault(label, []).append(
         {"shape": list(shape), "chunk": chunk, "peak_bytes": peak,
-         "model_bytes": model})
-    if model < peak:
+         "graph_held_bytes": held, "model_bytes": model})
+    if model < max(peak, held):
         raise AssertionError(f"{label}: memory.streamed_peak_bytes {model} "
-                             f"below the measured peak {peak}")
+                             f"below the measured peak {peak} or the {held} "
+                             f"bytes the graphs hold")
 
 
 def stream_gate(torch, label, streamed, incore, e_s, e_c, epe_limit):
@@ -958,7 +1191,7 @@ def stream_phases(torch, i0, i1, true, mask, launches, summary) -> None:
     """Phases 11-14: compute_flow_piecewise on the card."""
     import tempfile
 
-    from tpuflow3d_torch import PRESETS, compute_flow, kernels
+    from tpuflow3d_torch import PRESETS, compute_flow, graphs, kernels
     from tpuflow3d_torch import synthetic as syn
     from tpuflow3d_torch.grid import HaloCtx
     from tpuflow3d_torch.piecewise import compute_flow_piecewise
@@ -983,12 +1216,16 @@ def stream_phases(torch, i0, i1, true, mask, launches, summary) -> None:
         torch.cuda.empty_cache()
         forms.clear()
 
-    def streamed(label, pp, pair=(i0, i1), **kw):
-        """One streamed run: (flow, wall s, launches, device peak bytes);
-        the kernel forms it launches go into ``forms``."""
+    def streamed(label, pp, pair=(i0, i1), split=None, **kw):
+        """One streamed run, graphed (no graphs held before it) unless
+        ``eager=True``: (flow, wall s, launches, device peak bytes); the
+        kernel forms it launches go into ``forms``, its host split into
+        ``split`` where one is given (``host_split``)."""
         kernels.reset_launches()
         t0 = time.perf_counter()
-        with recording_forms(forms):
+        with recording_forms(forms), (contextlib.nullcontext()
+                                      if split is None
+                                      else host_split(split)):
             f, peak, base = device_peak(
                 torch, dev, lambda: compute_flow_piecewise(
                     *pair, pp, chunk_z=STREAM_CHUNK, device=dev, **kw))
@@ -997,9 +1234,22 @@ def stream_phases(torch, i0, i1, true, mask, launches, summary) -> None:
             raise AssertionError(f"{label}: flow of shape {f.shape} or "
                                  f"non-finite")
         if pp.backend != "plain" and kw.get("fuse", True):
-            log_streamed_model(label, pair[0].shape, pp, STREAM_CHUNK, peak,
-                               base, summary)
+            log_streamed_model(label + (" eager" if kw.get("eager") else ""),
+                               pair[0].shape, pp, STREAM_CHUNK, peak, base,
+                               summary)
         return f, wall, dict(kernels.LAUNCHES), peak
+
+    def witness(label, f, launched, pp, pair=(i0, i1), **kw):
+        """The eager streamed run on the same inputs: bitwise the graphed
+        flow ``f``, with the same launches; returns its wall s."""
+        f_e, t_e, n_e, _ = streamed(label, pp, pair, eager=True, **kw)
+        log(f"[{label}] eager witness {t_e:.2f} s: bitwise the graphed flow "
+            f"{np.array_equal(f_e, f)}, launches equal {n_e == launched}")
+        if not np.array_equal(f_e, f) or n_e != launched:
+            raise AssertionError(f"{label}: the graphed streamed flow is not "
+                                 f"the eager one ({n_e} eager launches, "
+                                 f"{launched} graphed)")
+        return t_e
 
     def incore(pp, pair=(i0, i1), label=""):
         t0 = time.perf_counter()
@@ -1016,6 +1266,7 @@ def stream_phases(torch, i0, i1, true, mask, launches, summary) -> None:
     windows(path, pp, all_forms=True)
     f_k, t_k, launches[path], peak_k = streamed(path, pp)
     check_launches(path, launches[path], STREAM_PATHS[path][2])
+    t_e = witness(path, f_k, launches[path], pp)
     f_p, t_p, _, _ = streamed(path, pp.replace(backend="plain"))
     diff = np.abs(f_k - f_p)
     bad = int((diff > FLOW_ATOL + FLOW_RTOL * np.abs(f_p)).sum())
@@ -1044,7 +1295,8 @@ def stream_phases(torch, i0, i1, true, mask, launches, summary) -> None:
     check_forms(path, forms, checked)
     profile_split(torch, lambda: compute_flow_piecewise(
         i0, i1, pp, chunk_z=STREAM_CHUNK, device=dev))
-    summary["stream"] = {path: {"kernels_s": t_k, "plain_s": t_p,
+    summary["stream"] = {path: {"kernels_s": t_k, "eager_s": t_e,
+                                "plain_s": t_p,
                                 "device_peak_bytes": peak_k, "epe": e_k,
                                 "max_abs_kernels_plain": float(diff.max()),
                                 "resume_max_abs": d_r}}
@@ -1059,6 +1311,7 @@ def stream_phases(torch, i0, i1, true, mask, launches, summary) -> None:
     windows(path, pp)
     f_f, t_f, launches[path], _ = streamed(path, pp)
     check_launches(path, launches[path], STREAM_PATHS[path][2])
+    t_fe = witness(path, f_f, launches[path], pp)
     f_u, t_u, n_u, _ = streamed(path, pp, fuse=False)
     check_forms(path, forms, checked)
     diff = np.abs(f_f - f_u)
@@ -1076,9 +1329,9 @@ def stream_phases(torch, i0, i1, true, mask, launches, summary) -> None:
     gaps[256] = float(diff.max())
     real = pw._ph_fused_warp_iter
 
-    def shifted(i0s, i1s, fls, carry, *rest):
+    def shifted(i0s, i1s, fls, carry, *rest, **kw):
         return real(i0s, i1s, fls, torch.cat([carry[:, 1:], carry[:, -1:]],
-                                             1), *rest)
+                                             1), *rest, **kw)
 
     pw._ph_fused_warp_iter = shifted
     try:
@@ -1100,7 +1353,8 @@ def stream_phases(torch, i0, i1, true, mask, launches, summary) -> None:
         raise AssertionError(f"{path}: fused and phased flows disagree")
     if planted <= FUSED_ATOL:
         raise AssertionError(f"{path}: the gate passes a planted carry fault")
-    summary["stream"][path] = {"fused_s": t_f, "phases_s": t_u,
+    summary["stream"][path] = {"fused_s": t_f, "fused_eager_s": t_fe,
+                               "phases_s": t_u,
                                "max_abs_fused_phases_by_size": gaps,
                                "max_abs_planted_fault": planted,
                                "epe": e_f, "epe_incore": e_c}
@@ -1144,9 +1398,15 @@ def stream_phases(torch, i0, i1, true, mask, launches, summary) -> None:
     tag = f"[{path}]"
     pp = params(path)
     windows(path, pp)
-    f_s, t_s, launches[path], peak_s = streamed(path, pp)
+    split = {}
+    f_s, t_s, launches[path], peak_s = streamed(path, pp, split=split)
     check_launches(path, launches[path], STREAM_PATHS[path][2])
     check_forms(path, forms, checked)
+    # Phase 18 takes this run as stream:accurate's first graphed call.
+    (entry,) = graphs.entries().values()
+    summary["stream_first"] = {path: {
+        "flow": f_s, "split": {**split, "wall": t_s},
+        "launches": dict(launches[path]), "entry": entry}}
     f_c, t_c, peak_c = incore(pp, label=path)
     e_s = syn.epe(f_s, true, mask)
     e_c = syn.epe(f_c.cpu().numpy(), true, mask)
@@ -1156,8 +1416,9 @@ def stream_phases(torch, i0, i1, true, mask, launches, summary) -> None:
     mx, mean = stream_gate(torch, tag, f_s, f_c, e_s, e_c,
                            STREAM_PATHS[path][3])
     summary["stream"][path] = {
-        "streamed_s": t_s, "incore_s": t_c, "device_peak_streamed_bytes":
-        peak_s, "device_peak_incore_bytes": peak_c, "max_abs": mx,
+        "streamed_s": t_s, "incore_s": t_c,
+        "device_peak_streamed_bytes": peak_s,
+        "device_peak_incore_bytes": peak_c, "max_abs": mx,
         "mean_abs": mean, "epe_streamed": e_s, "epe_incore": e_c}
     torch.cuda.empty_cache()
 
@@ -2514,6 +2775,10 @@ def main() -> None:
     # 17. The compiled dispatch: graphed against eager.
     graphs_phase(torch, i0, i1, summary)
     log("[graphs] " + json.dumps(summary.pop("graphs")))
+
+    # 18. The streamed mode's graphs against its eager phases.
+    stream_graphs_phase(torch, i0, i1, summary)
+    log("[stream-graphs] " + json.dumps(summary.pop("stream_graphs")))
 
     def halo_entry(name):
         """K2/K5 in halo form: its launches on the sharded paths (both

@@ -13,10 +13,10 @@ the volume passes a kernel's 32-bit index limits: then it is Z-sharded
 over the GPUs where there are several and a rank's slab fits
 (``sharding.compute_flow_sharded``, ``memory.sharded_peak_bytes``), else
 the out-of-core mode (``piecewise.compute_flow_piecewise``), with a
-Z-chunk from ``memory.pick_chunk_z``. In-core on the GPU the solve
-replays CUDA graphs (``graphs.py``) captured by its first pair, which every
-pair of a ``--frames`` series of one shape reuses; a streamed or sharded
-solve drops them first. ``--incore``, ``--piecewise`` and
+Z-chunk from ``memory.pick_chunk_z``. On the GPU the in-core solve and
+the streamed one replay CUDA graphs (``graphs.py``) captured by their
+first pair, which every pair of a ``--frames`` series of one shape
+reuses; a solve drops the other kind's graphs first, a sharded one all. ``--incore``, ``--piecewise`` and
 ``--sharded`` (one rank per GPU, ``--devices N`` of them; more than there
 are exits 2) pin it. ``--distributed`` is the multi-process path: every
 process runs this command with ``--coordinator``, ``--num-processes`` and
@@ -522,9 +522,10 @@ def _solve_pair(args, params, i0, i1, log, timer, checkpoint_dir, dev):
     """One frame pair through the selected execution path. Returns
     (flow ndarray, diagnostics dict of ndarrays)."""
     diagnostics = params.track_residuals
-    if args.piecewise or args.sharded:
-        # The in-core solve's captured graphs (one entry, reused by every
-        # pair of a series) would hold device memory these paths need.
+    if args.sharded:
+        # The in-core graphs (one entry, reused by every pair of a series)
+        # would hold device memory the ranks need. A streamed solve drops
+        # them itself when it makes its entry.
         from tpuflow3d_torch import graphs
         graphs.clear()
     if args.piecewise:

@@ -35,12 +35,12 @@
 extern "C" int tf3d_sor_gc_sweeps(
     const float* du, const void* c, const void* g_unused, const float* psi_s,
     const float* ainv, const float* du_lo, const float* du_hi,
-    const float* ps_lo, const float* ps_hi, float* buf0, float* buf1, int D,
-    int H, int W, int z0, int dg, float hz, float hy, float hx, float omega,
-    float one_minus_omega, int colours, int nsweeps, int terms_bf16,
-    int* launched, void* stream) {
+    const float* ps_lo, const float* ps_hi, float* buf0, float* buf1,
+    const int* z0_dev, int D, int H, int W, int z0, int dg, float hz,
+    float hy, float hx, float omega, float one_minus_omega, int colours,
+    int nsweeps, int terms_bf16, int* launched, void* stream) {
   return tf3d_sweep::launch<true>(
-      du, c, g_unused, psi_s, ainv, du_lo, du_hi, ps_lo, ps_hi, buf0, buf1, D,
-      H, W, z0, dg, hz, hy, hx, omega, one_minus_omega, colours, nsweeps,
-      terms_bf16, launched, stream);
+      du, c, g_unused, psi_s, ainv, du_lo, du_hi, ps_lo, ps_hi, buf0,
+      buf1, z0_dev, D, H, W, z0, dg, hz, hy, hx, omega, one_minus_omega,
+      colours, nsweeps, terms_bf16, launched, stream);
 }

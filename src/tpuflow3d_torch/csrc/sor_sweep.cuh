@@ -108,6 +108,10 @@ struct Args {
   const float* du_hi;
   const float* ps_lo;
   const float* ps_hi;
+  // The slab's global origin: z0_dev when it is not null (a streamed slab
+  // under a CUDA graph replayed for every slab, whose origin changes between
+  // replays), else z0.
+  const int* z0_dev;
   int D, H, W, HW, N, z0, dg;
   float hz, hy, hx, omega, omo;
 };
@@ -332,12 +336,14 @@ __device__ __forceinline__ void load_terms(const Args<T>& a, int i, int n,
   }
 }
 
-// One colour of the quad (z, y, x0), every input from device memory.
+// One colour of the quad (z, y, x0) of a slab whose plane 0 is global plane
+// z0, every input from device memory.
 template <typename T, bool kGC, bool kVec>
-__device__ __forceinline__ F4x3 colour_quad(const Args<T>& a, int z, int y,
-                                            int x0, int colour, float* rest) {
+__device__ __forceinline__ F4x3 colour_quad(const Args<T>& a, int z0, int z,
+                                            int y, int x0, int colour,
+                                            float* rest) {
   constexpr int NT = NTerms<kGC>::value;
-  const int zg = a.z0 + z;
+  const int zg = z0 + z;
   const int s = (zg + y + colour) & 1;
   const int n = min(4, a.W - x0);
   const int hp = y * a.W + x0;  // index within a halo plane
@@ -372,7 +378,8 @@ __global__ void __launch_bounds__(kCX* kCY)
   const int y = blockIdx.y * kCY + threadIdx.y;
   const int z = blockIdx.z;
   if (x0 >= a.W || y >= a.H) return;
-  const F4x3 o = colour_quad<T, kGC, kVec>(a, z, y, x0, colour, nullptr);
+  const int z0 = a.z0_dev != nullptr ? *a.z0_dev : a.z0;
+  const F4x3 o = colour_quad<T, kGC, kVec>(a, z0, z, y, x0, colour, nullptr);
   const int i = z * a.HW + y * a.W + x0;
   const int n = min(4, a.W - x0);
   store4<kVec>(out, i, n, o.a);
@@ -409,7 +416,7 @@ __global__ void __launch_bounds__(kFusedThreads, kMinBlocks)
       const int s = (k + y) & 1;
       if (!rim_x || (tx == 0 ? s == 1 : s == 0)) {
         const F4x3 q = colour_quad<T, kGC, kVec>(
-            a, k, y, x0, 0, black_next);
+            a, a.z0, k, y, x0, 0, black_next);
         float(*pl)[kPlaneF] = sm[(k + 1) % kSlots];
         *reinterpret_cast<float4*>(&pl[0][so]) = q.a;
         *reinterpret_cast<float4*>(&pl[1][so]) = q.b;
@@ -564,11 +571,15 @@ int run(Args<T> a, float* buf0, float* buf1, int colours, int nsweeps,
 
 // The C entries of sor.cu and sor_gc.cu. colours: 0 red, 1 black (one
 // half-sweep, du -> buf0, nsweeps must be 1), 2 red then black (nsweeps full
-// sweeps; the slab must be the whole volume: z0 == 0, dg == D; du -> buf0 ->
+// sweeps; the slab must be the whole volume: z0_dev null, z0 == 0, dg == D;
+// du -> buf0 ->
 // buf1 -> buf0 ..., or, for the general system on a grid of at most
 // kResidentMax voxels, all of them in one launch into buf0).
 // *launched gets the number of kernel launches made; the result is in buf0
-// when it is odd, else in buf1. The plane pointers may be null when z0 == 0 and dg == D.
+// when it is odd, else in buf1. The plane pointers may be null on the whole
+// volume. z0_dev, when not null, points to the slab's origin in device memory
+// (an int, read by each thread of a launch), which then takes the place of
+// z0; such a slab is never taken for the whole volume.
 // Returns cudaGetLastError(), or cudaErrorInvalidValue for arguments no
 // kernel here takes; among them a grid past the kernels' limits: D and the
 // blocks along H at most 65535 (grid dimensions), 6 * D*H*W below 2^31
@@ -577,13 +588,14 @@ template <bool kGC>
 int launch(const float* du, const void* c, const void* g, const float* ps,
            const float* aux, const float* du_lo, const float* du_hi,
            const float* ps_lo, const float* ps_hi, float* buf0, float* buf1,
-           int D, int H, int W, int z0, int dg, float hz, float hy, float hx,
+           const int* z0_dev, int D, int H, int W, int z0, int dg, float hz,
+           float hy, float hx,
            float omega, float omo, int colours, int nsweeps, int terms_bf16,
            int* launched, void* stream) {
   *launched = 0;
   const long long N = (long long)D * H * W;
   if (N == 0 || nsweeps == 0) return 0;
-  const bool whole = z0 == 0 && dg == D;
+  const bool whole = z0_dev == nullptr && z0 == 0 && dg == D;
   constexpr int kRows = kCY < kTY ? kCY : kTY;  // the shorter block along H
   if (D < 0 || H < 0 || W < 0 || D > 65535 || (H + kRows - 1) / kRows > 65535 ||
       6 * N >= (1LL << 31) || colours < 0 || colours > 2 || nsweeps < 0 ||
@@ -601,9 +613,11 @@ int launch(const float* du, const void* c, const void* g, const float* ps,
   const cudaStream_t st = (cudaStream_t)stream;
   auto go = [&](auto tag) {
     using T = decltype(tag);
-    Args<T> a{du,    (const T*)c, (const T*)g, ps, aux, du_lo, du_hi,
-              ps_lo, ps_hi,       D,           H,  W,   H * W, (int)N,
-              z0,    dg,          hz,          hy, hx,  omega, omo};
+    Args<T> a{du,    (const T*)c, (const T*)g, ps,     aux,
+              du_lo, du_hi,       ps_lo,       ps_hi,  z0_dev,
+              D,     H,           W,           H * W,  (int)N,
+              z0,    dg,          hz,          hy,     hx,
+              omega, omo};
     return vec ? run<T, kGC, true>(a, buf0, buf1, colours, nsweeps, launched,
                                    st)
                : run<T, kGC, false>(a, buf0, buf1, colours, nsweeps, launched,

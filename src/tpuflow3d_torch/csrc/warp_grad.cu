@@ -19,7 +19,9 @@
 // the true volume in the slab's frame, then to the slab, in the plain
 // version's float operations: clip(clip(z + s_z, -z0, dg-1-z0), 0, D-1).
 // With z0 = 0 and dg = D the outer clip changes nothing, so the one-device
-// call is the window form with the whole volume as its slab.
+// call is the window form with the whole volume as its slab. A streamed slab
+// replayed from a CUDA graph passes its z0 in device memory (z0_dev), which
+// each thread reads once; the arithmetic is the same.
 //
 // Halo form (a Z shard: planes z0 .. z0+D-1 of a volume of dg): I1 comes
 // padded by ip planes a side, flow and i0 by one, each pad holding the
@@ -204,8 +206,8 @@ __global__ void __launch_bounds__(kThreads,
     const float* __restrict__ i1, const float* __restrict__ flow,
     const float* __restrict__ i0, float* __restrict__ g,
     float* __restrict__ it, float* __restrict__ i1w, int D, int H, int W,
-    int z0g, int dg, int ip, int zchunk, int box_floats, int vec_rows,
-    int* __restrict__ tiles) {
+    const int* __restrict__ z0_dev, int z0_arg, int dg, int ip, int zchunk,
+    int box_floats, int vec_rows, int* __restrict__ tiles) {
   extern __shared__ float4 s_dyn[];
   float* s_bar = reinterpret_cast<float*>(s_dyn);  // [kRing][kEY][kEX]
   float* s_box = s_bar + kRing * kPlanePts;         // the staged box
@@ -216,6 +218,8 @@ __global__ void __launch_bounds__(kThreads,
   const int bx = blockIdx.x * kTX, by = blockIdx.y * kTY;
   const int z0 = blockIdx.z * zchunk, zend = min(z0 + zchunk, D);
   const int N = D * H * W;
+  // The slab's global origin: from device memory when given.
+  const int z0g = z0_dev != nullptr ? *z0_dev : z0_arg;
   // The halo form (ip > 0): flow and i0 padded by one plane (fp), I1 by ip
   // (its last plane zmax; global plane g is its plane g + zsh),
   // neighbours beyond the faces that are interior.
@@ -393,8 +397,9 @@ __global__ void __launch_bounds__(kThreads,
 
 template <bool kCubic>
 int launch(const float* i1, const float* flow, const float* i0, float* g,
-           float* it, float* i1w, int D, int H, int W, int z0, int dg,
-           int ip, bool staged, int* tiles, cudaStream_t stream) {
+           float* it, float* i1w, int D, int H, int W, const int* z0_dev,
+           int z0, int dg, int ip, bool staged, int* tiles,
+           cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(
       warp_grad_kernel<kCubic>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmemBytes<kCubic>);
@@ -410,7 +415,7 @@ int launch(const float* i1, const float* flow, const float* i0, float* g,
                   (D + zchunk - 1) / zchunk);
   warp_grad_kernel<kCubic><<<grid, dim3(kTX, kTY / kRowsPerThread),
                              kSmemBytes<kCubic>, stream>>>(
-      i1, flow, i0, g, it, i1w, D, H, W, z0, dg, ip, zchunk,
+      i1, flow, i0, g, it, i1w, D, H, W, z0_dev, z0, dg, ip, zchunk,
       staged ? kBoxFloats<kCubic> : 0, vec_rows, tiles);
   return (int)cudaGetLastError();
 }
@@ -420,19 +425,23 @@ int launch(const float* i1, const float* flow, const float* i0, float* g,
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 // i1w may be null (no warped volume wanted); cubic != 0 selects K5. z0 and
 // dg place the volume as a window of a larger one (see above): 0 and D for
-// the whole volume. ip > 0 selects the halo form of a Z shard (above): i1
+// the whole volume; z0_dev, when not null, points to the origin in device
+// memory and takes the place of z0. ip > 0 selects the halo form of a Z shard (above): i1
 // then holds D + 2*ip planes, flow and i0 D + 2.
 // staged == 0 sends every slab to the device-memory gathers; tiles, when
 // not null, is a device int[2] to which each slab adds one: [0] staged,
 // [1] gathered from device memory.
 extern "C" int tf3d_warp_grad(const float* i1, const float* flow,
                               const float* i0, float* g, float* it,
-                              float* i1w, int D, int H, int W, int z0,
-                              int dg, int ip, int cubic, int staged,
-                              int* tiles, void* stream) {
+                              float* i1w, int D, int H, int W,
+                              const int* z0_dev, int z0, int dg, int ip,
+                              int cubic, int staged, int* tiles,
+                              void* stream) {
   if ((long long)D * H * W == 0) return 0;
-  return cubic ? launch<true>(i1, flow, i0, g, it, i1w, D, H, W, z0, dg, ip,
-                              staged != 0, tiles, (cudaStream_t)stream)
-               : launch<false>(i1, flow, i0, g, it, i1w, D, H, W, z0, dg,
-                               ip, staged != 0, tiles, (cudaStream_t)stream);
+  return cubic ? launch<true>(i1, flow, i0, g, it, i1w, D, H, W, z0_dev, z0,
+                              dg, ip, staged != 0, tiles,
+                              (cudaStream_t)stream)
+               : launch<false>(i1, flow, i0, g, it, i1w, D, H, W, z0_dev, z0,
+                               dg, ip, staged != 0, tiles,
+                               (cudaStream_t)stream);
 }

@@ -80,7 +80,7 @@ class CommStats:
 COMM = CommStats()
 
 
-@dataclass(frozen=True)
+@dataclass(frozen=True, eq=False)
 class HaloCtx:
     """Execution context of the stencil ops: one device, a streamed
     window, or a Z shard. A context is a window or a shard, never both.
@@ -95,7 +95,11 @@ class HaloCtx:
     volume). Parity, face masks and warp clipping then answer in global
     coordinates; ``zpad`` and ``z_halo_planes`` still replicate the slab's
     own faces, so an op over-pads the slab and the streaming loop crops
-    the planes that the replicas reach.
+    the planes that the replicas reach. ``window_z0`` is a Python int or a
+    0-d integer tensor on the slab's device (a CUDA graph replayed for
+    every slab reads its origin from device memory); nothing here reads a
+    tensor origin on the host, and two contexts compare their tensor
+    origins by identity.
 
     In sharded mode (``n_shards`` > 1, made by ``shard_ctx``) the local
     volume is rank ``rank``'s slab of ``d_local`` planes of a volume of
@@ -110,7 +114,7 @@ class HaloCtx:
     host buffers, explicitly; under NCCL device tensors go as they are.
     ``COMM`` counts what the collectives cost."""
 
-    window_z0: int | None = None
+    window_z0: int | torch.Tensor | None = None
     window_d_global: int | None = None
     n_shards: int = 1
     rank: int = 0
@@ -122,6 +126,17 @@ class HaloCtx:
             raise ValueError("a HaloCtx is a window or a shard, not both")
         if not 0 <= self.rank < self.n_shards:
             raise ValueError(f"rank {self.rank} of {self.n_shards} shards")
+
+    def _key(self) -> tuple:
+        z0 = self.window_z0
+        return (("tensor", id(z0)) if isinstance(z0, torch.Tensor) else z0,
+                self.window_d_global, self.n_shards, self.rank, self.staged)
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, HaloCtx) and self._key() == other._key()
+
+    def __hash__(self) -> int:
+        return hash(self._key())
 
     @property
     def has_z_neighbors(self) -> bool:
@@ -139,12 +154,17 @@ class HaloCtx:
         """Whether the local slab is the whole volume (global plane 0 first,
         ``d_local`` planes in all) and has no Z neighbours. Only then may
         the sweep kernels take null halo planes and fuse red and black in
-        one launch."""
-        return (not self.has_z_neighbors and int(self.z0(d_local)) == 0
+        one launch. A window whose origin is a tensor is not (a streamed
+        slab's margins reach below plane 0 or past the depth), which is
+        decided without reading the tensor."""
+        if self.has_z_neighbors or isinstance(self.window_z0, torch.Tensor):
+            return False
+        return (int(self.z0(d_local)) == 0
                 and self.d_global(d_local) == d_local)
 
-    def z0(self, d_local: int) -> int:
-        """Global z index of local plane 0."""
+    def z0(self, d_local: int):
+        """Global z index of local plane 0 (an int, or the window's 0-d
+        tensor)."""
         if self.window_z0 is not None:
             return self.window_z0
         return self.rank * d_local

@@ -72,16 +72,17 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     # du, c, g, psi_s, psi_d (K6: ainv), du_lo, du_hi, ps_lo, ps_hi, buf0,
-    # buf1, D, H, W, z0, dg, hz, hy, hx, omega, one_minus_omega, colours,
-    # nsweeps, terms_bf16, launched (int*), stream
-    "tf3d_sor_sweeps": ([_P] * 11 + [_I] * 5 + [_F] * 5 + [_I] * 3
+    # buf1, z0_dev (the origin in device memory, may be null), D, H, W, z0,
+    # dg, hz, hy, hx, omega, one_minus_omega, colours, nsweeps, terms_bf16,
+    # launched (int*), stream
+    "tf3d_sor_sweeps": ([_P] * 12 + [_I] * 5 + [_F] * 5 + [_I] * 3
                         + [_IP, _P]),
-    "tf3d_sor_gc_sweeps": ([_P] * 11 + [_I] * 5 + [_F] * 5 + [_I] * 3
+    "tf3d_sor_gc_sweeps": ([_P] * 12 + [_I] * 5 + [_F] * 5 + [_I] * 3
                            + [_IP, _P]),
-    # i1, flow, i0, g, it, i1w (may be null), D, H, W, z0, dg, ip (I1's pad
-    # planes in the halo form, else 0), cubic, staged, tiles (int[2] on the
-    # device, may be null), stream
-    "tf3d_warp_grad": [_P] * 6 + [_I] * 8 + [_P, _P],
+    # i1, flow, i0, g, it, i1w (may be null), D, H, W, z0_dev (may be null),
+    # z0, dg, ip (I1's pad planes in the halo form, else 0), cubic, staged,
+    # tiles (int[2] on the device, may be null), stream
+    "tf3d_warp_grad": [_P] * 6 + [_I] * 3 + [_P] + [_I] * 5 + [_P, _P],
     # du_a, du_o, c_a, g_a, ps_a, ps_o, pd_a, duo_lo, duo_hi, pso_lo, pso_hi,
     # out, D, H, WP, z0, dg, half_alpha, omega, one_minus_omega, color,
     # terms_bf16, stream
@@ -235,6 +236,16 @@ def on_device(device: torch.device):
 
 def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def origin(z0, device: torch.device) -> tuple:
+    """A window's origin as the flat sweep and warp entries take it: (the
+    address of a device int32, 0) for a 0-d tensor on ``device`` (a
+    streamed slab replayed from a CUDA graph), else (None, the int)."""
+    if isinstance(z0, torch.Tensor):
+        check_tensor("z0", z0, (), device, torch.int32)
+        return z0.data_ptr(), 0
+    return None, int(z0)
 
 
 def terms_dtype(c: torch.Tensor) -> torch.dtype:

@@ -87,6 +87,8 @@ def launch_flat(name: str, entry: str, du: torch.Tensor, c: torch.Tensor,
             kernels.check_tensor(pname, x, shape, dev)
     # On a whole volume no stencil crosses the slab's Z faces: null planes.
     plane_ptrs = [x.data_ptr() for x in planes] or [None] * 4
+    # A window's tensor origin is read by the kernel from device memory.
+    z0_dev, z0 = kernels.origin(ctx.z0(d), dev)
     buf0 = torch.empty_like(du)
     buf1 = torch.empty_like(du) if n > 1 else None
     launched = ctypes.c_int(0)
@@ -97,10 +99,10 @@ def launch_flat(name: str, entry: str, du: torch.Tensor, c: torch.Tensor,
             name, getattr(lib, entry), du.data_ptr(), c.data_ptr(),
             None if g is None else g.data_ptr(), psi_s.data_ptr(),
             aux.data_ptr(), *plane_ptrs, buf0.data_ptr(),
-            None if buf1 is None else buf1.data_ptr(), d, h, w,
-            int(ctx.z0(d)), ctx.d_global(d), hz, hy, hx, omega, 1.0 - omega,
-            colours, n, int(td == torch.bfloat16), ctypes.byref(launched), kernels.stream_handle(dev),
-            launched=launched)
+            None if buf1 is None else buf1.data_ptr(), z0_dev, d, h, w, z0,
+            ctx.d_global(d), hz, hy, hx, omega, 1.0 - omega, colours, n,
+            int(td == torch.bfloat16), ctypes.byref(launched),
+            kernels.stream_handle(dev), launched=launched)
     return buf0 if launched.value % 2 or buf1 is None else buf1
 
 

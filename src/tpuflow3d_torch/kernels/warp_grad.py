@@ -12,7 +12,8 @@ apart (``warp_grad`` and ``warp_grad_tricubic``).
 
 - Under a window context (a streamed slab of a larger volume) the kernel
   clips z as the plain ``warp_volume`` does there, from the slab's global
-  z0 and the volume's depth.
+  z0 and the volume's depth; a z0 held in a 0-d int32 tensor (a slab
+  replayed from a CUDA graph) is read by the kernel from device memory.
 - Under a sharded context (the halo form) ``max_disp`` bounds |s_z|, as
   in the plain sharded warp: I1 is padded by ``warp_halo(max_disp) + 1``
   planes (ceil(max_disp) + 2, + 3 tricubic) and the flow and i0 by one,
@@ -84,8 +85,8 @@ def warp_grad(i1: torch.Tensor, flow: torch.Tensor, i0: torch.Tensor,
             ctx.zpad(flow, 1).contiguous(), ctx.zpad(i0, 1).contiguous(),
             int(ctx.z0(d)), ctx.d_global(d), nh, interp, emit_warped,
             staged, tile_counts)
-    return _launch(i1, flow, i0, int(ctx.z0(d)), ctx.d_global(d), 0,
-                   interp, emit_warped, staged, tile_counts)
+    return _launch(i1, flow, i0, ctx.z0(d), ctx.d_global(d), 0, interp,
+                   emit_warped, staged, tile_counts)
 
 
 def warp_grad_halo(i1p: torch.Tensor, flp: torch.Tensor, i0p: torch.Tensor,
@@ -110,11 +111,11 @@ def warp_grad_halo(i1p: torch.Tensor, flp: torch.Tensor, i0p: torch.Tensor,
                    staged, tile_counts)
 
 
-def _launch(i1, flow, i0, z0: int, d_global: int, ip: int, interp: str,
+def _launch(i1, flow, i0, z0, d_global: int, ip: int, interp: str,
             emit_warped: bool, staged: bool, tile_counts):
     """Check and launch: the window form with ``ip`` 0 (i1, flow, i0 of D
-    planes), the halo form with ``ip`` = nh + 1 I1 pad planes (flow and i0
-    of D + 2)."""
+    planes; z0 an int or a 0-d int32 tensor on the device), the halo form
+    with ``ip`` = nh + 1 I1 pad planes (flow and i0 of D + 2)."""
     fp = 1 if ip else 0
     d, h, w = i0.shape[0] - 2 * fp, i0.shape[1], i0.shape[2]
     if not grid_fits(d, h, w, ip):
@@ -128,6 +129,7 @@ def _launch(i1, flow, i0, z0: int, d_global: int, ip: int, interp: str,
     if tile_counts is not None:
         kernels.check_tensor("tile_counts", tile_counts, (2,), dev,
                              torch.int32)
+    z0_dev, z0 = kernels.origin(z0, dev)
     g = torch.empty((3, d, h, w), dtype=torch.float32, device=dev)
     it = torch.empty((d, h, w), dtype=torch.float32, device=dev)
     i1w = torch.empty_like(it) if emit_warped else None
@@ -139,7 +141,7 @@ def _launch(i1, flow, i0, z0: int, d_global: int, ip: int, interp: str,
                        i1.data_ptr(), flow.data_ptr(), i0.data_ptr(),
                        g.data_ptr(), it.data_ptr(),
                        i1w.data_ptr() if emit_warped else None, d, h, w,
-                       z0, d_global, ip, int(cubic), int(staged),
+                       z0_dev, z0, d_global, ip, int(cubic), int(staged),
                        None if tile_counts is None else tile_counts.data_ptr(),
                        kernels.stream_handle(dev))
     return (g, it, i1w) if emit_warped else (g, it)

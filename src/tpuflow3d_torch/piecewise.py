@@ -44,6 +44,18 @@ prepares the next slab while the device computes; an in-place phase (the
 SOR du) stays synchronous, since chunk k+1's margin must see chunk k's
 writes.
 
+Compiled phases: as the JAX package jits each slab phase once per slab
+shape with the slab's origin traced, the phases run through a runner
+(``graphs.stream_runner``): on a CUDA device each is captured at its first
+slab into a CUDA graph, once per (phase, static arguments, slab shapes),
+and replayed for every slab of every pass; the slab is copied from its
+staging buffer straight into the graph's static inputs, and the origins
+(z0, the wavefront's kbase, the resample's output and input origins) are
+0-d int32 tensors on the device, filled before each replay. On the CPU
+the phases run directly with the origins in 0-d tensors, the arithmetic
+the graphs replay; ``eager=True`` runs them directly on the card with
+Python ints (the witness a graphed run is held to, bitwise).
+
 Scale note: this is the one-device overflow path; a Z-sharded mesh
 (ROADMAP queue 1, item 10) keeps everything resident instead.
 """
@@ -58,6 +70,7 @@ import numpy as np
 import torch
 
 from tpuflow3d_torch import checkpoint as ckpt
+from tpuflow3d_torch import graphs
 from tpuflow3d_torch.backend import check_supported, use_kernels
 from tpuflow3d_torch.derivatives import grad_constancy_terms
 from tpuflow3d_torch.grid import HaloCtx
@@ -78,19 +91,25 @@ DEFAULT_FLOW_CLAMP = 4.0
 
 
 class _Stager:
-    """Moves host slabs to the run's device and results back. For a CUDA
+    """Moves host slabs to the run's device and results back, and holds the
+    call's runner (``run``: ``graphs.stream_runner``; the phases called
+    directly by default), through which the slab phases run. For a CUDA
     device through page-locked buffers, without blocking, on the current
     stream (the caching host allocator keeps a buffer until the copies
     that use it are done). Host copies go through torch, whose CPU copy
     runs on several threads."""
 
-    def __init__(self, device: torch.device):
-        self.device = device
+    def __init__(self, device: torch.device, run=None):
+        if run is None:   # the phases called directly
+            run = graphs.stream_runner(None, device, eager=True)
+        self.device, self.run = device, run
         self.cuda = device.type == "cuda"
 
-    def put(self, x: np.ndarray, lo: int, size: int) -> torch.Tensor:
+    def put(self, x: np.ndarray, lo: int, size: int,
+            out: torch.Tensor | None = None) -> torch.Tensor:
         """The slab [lo, lo+size) of host array x along axis -3, planes
-        outside the volume replicating its faces, on the device."""
+        outside the volume replicating its faces, on the device: copied
+        into ``out`` (a graph's static input) when it is given."""
         d = x.shape[-3]
         src = torch.from_numpy(x)
         buf = torch.empty((*x.shape[:-3], size, *x.shape[-2:]),
@@ -106,12 +125,27 @@ class _Stager:
         if n_hi:
             top = buf.narrow(-3, size - n_hi, n_hi)
             top.copy_(src.narrow(-3, d - 1, 1).expand_as(top))
+        if out is not None:
+            return out.copy_(buf, non_blocking=True)
         return buf.to(self.device, non_blocking=True) if self.cuda else buf
+
+    def phase(self, fn, inputs, size: int):
+        """The runner's handle of slab phase ``fn`` over slabs of ``size``
+        planes of the host arrays ``inputs``."""
+        return self.run.phase(fn, [(*x.shape[:-3], size, *x.shape[-2:])
+                                   for x in inputs])
+
+    def put_all(self, ph, inputs, lo: int, size: int) -> list:
+        """The slabs at ``lo`` of ``inputs``, staged into ``ph.inputs``."""
+        return [self.put(x, lo, size, out)
+                for x, out in zip(inputs, ph.inputs)]
 
     def get(self, t: torch.Tensor):
         """Start t's copy to the host; ``wait`` or ``store`` finish it."""
         if not self.cuda:
-            return t, None
+            # A copy, as on the card: a runner's results may be overwritten
+            # by its next phase.
+            return t.clone(), None
         buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         buf.copy_(t, non_blocking=True)
         done = torch.cuda.Event()
@@ -130,17 +164,24 @@ class _Stager:
         torch.from_numpy(out).copy_(self.wait(handle))
 
 
-def _wctx(z0: int, dg: int) -> HaloCtx:
+def _wctx(z0, dg: int) -> HaloCtx:
     return HaloCtx(window_z0=z0, window_d_global=dg)
 
 
-def _clamp_global_z(x: torch.Tensor, z0: int, dg: int) -> torch.Tensor:
+def _clip(x, dg: int):
+    """clamp(x, 0, dg) of an int or an integer tensor."""
+    if isinstance(x, torch.Tensor):
+        return x.clamp(0, dg)
+    return min(max(x, 0), dg)
+
+
+def _clamp_global_z(x: torch.Tensor, z0, dg: int) -> torch.Tensor:
     """Remap slab planes outside the global [0, dg) to their clamped
     in-range twins. Slab margins hold replicas of the RAW inputs; a
     stencil of a stencil (the gradient-constancy second derivatives) needs
     the replicas of the DERIVED field at the global faces to match the
     in-core ``zpad``: first derivatives of a replicated plane are ~0, not
-    a copy of the face derivative."""
+    a copy of the face derivative. z0 an int or a 0-d tensor."""
     size = x.shape[-3]
     zg = z0 + torch.arange(size, device=x.device)
     return x.index_select(-3, zg.clamp(0, dg - 1) - z0)
@@ -162,38 +203,44 @@ def _halfsweep_fn(du: torch.Tensor, p: FlowParams, ctx: HaloCtx,
     return lambda x, t, color: sor_halfsweep(x, t, omega, parity, color, ctx)
 
 
-def _trapezoid_sweeps(dus, t, z0: int, kbase: int, dg: int, p: FlowParams,
+def _trapezoid_sweeps(dus, t, z0, kbase, dg: int, p: FlowParams,
                       sweeps: int, chunk: int, omega: float | None = None):
     """All 2*sweeps half-sweeps of one chunk visit, wavefront-masked.
 
     Half-sweep j (1-based, colour (j-1)&1) updates global planes
     [F_j(k-1), F_j(k)) with F_j(k) = clamp(kbase + 2*sweeps - j, 0, dg),
-    kbase = k*chunk; everything else on the slab passes through.
-    ``omega`` overrides p.omega (the multigrid smoother's p.mg_omega)."""
+    kbase = k*chunk; everything else on the slab passes through. z0 and
+    kbase are ints or 0-d tensors (then the frontiers are device
+    arithmetic). ``omega`` overrides p.omega (the multigrid smoother's
+    p.mg_omega)."""
     ctx = _wctx(z0, dg)
     half = _halfsweep_fn(dus, p, ctx, p.omega if omega is None else omega)
     size = dus.shape[-3]
     zg = z0 + torch.arange(size, device=dus.device)
     s2 = 2 * sweeps
+    first = kbase <= 0
     for j in range(1, s2 + 1):
-        hi = min(max(kbase + s2 - j, 0), dg)
+        hi = _clip(kbase + s2 - j, dg)
         # lo = F_j(k-1). Launch 0 has no predecessor: its frontier is 0,
         # not the virtual -chunk + 2S - j (> 0 when 2S > chunk + j, which
         # would skip half-sweep j on planes [0, lo) for good).
-        lo = min(max(kbase - chunk + s2 - j, 0), dg) if kbase > 0 else 0
+        lo = _clip(kbase - chunk + s2 - j, dg)
+        lo = (torch.where(first, 0, lo) if isinstance(first, torch.Tensor)
+              else 0 if first else lo)
         m = ((zg >= lo) & (zg < hi)).reshape(1, size, 1, 1)
         dus = torch.where(m, half(dus, t, (j - 1) & 1), dus)
     return dus
 
 
-# ---- slab phases (fn(*slabs, z0, ...) -> slab outputs) ----
+# ---- slab phases (fn(*slabs, z0, ...) -> slab outputs; the origins are
+# ints or 0-d int32 tensors, and a phase reads none of them on the host) ----
 
-def _ph_warp_deriv(i0s, i1s, fls, z0: int, dg: int, p: FlowParams):
+def _ph_warp_deriv(i0s, i1s, fls, z0, dg: int, p: FlowParams):
     g, it, _ = warp_and_derivatives(i0s, i1s, fls, p, _wctx(z0, dg))
     return g, it
 
 
-def _ph_terms(gs, its, fls, dus, z0: int, dg: int, p: FlowParams):
+def _ph_terms(gs, its, fls, dus, z0, dg: int, p: FlowParams):
     """The rank-1 sweep constants the kernels read: (c, psi_s, psi_d); c
     goes to the host as float32 (holding bfloat16 values when the terms
     are stored so)."""
@@ -201,7 +248,7 @@ def _ph_terms(gs, its, fls, dus, z0: int, dg: int, p: FlowParams):
     return t.c.float(), t.psi_s, t.psi_d
 
 
-def _ph_terms_gc(i0s, i1s, fls, dus, z0: int, dg: int, p: FlowParams,
+def _ph_terms_gc(i0s, i1s, fls, dus, z0, dg: int, p: FlowParams,
                  mg: bool = False):
     """Sweep constants of the gradient-constancy mode (p.gamma > 0),
     recomputed on the device from the raw slab inputs: warp + derivatives
@@ -254,14 +301,14 @@ def _ph_sor_trapezoid(dus, *rest, dg: int, p: FlowParams, sweeps: int,
 # weights and the inverse are rebuilt per slab visit
 # (mgsolver.assemble_fine_system).
 
-def _ph_terms_mg(gs, its, fls, dus, z0: int, dg: int, p: FlowParams):
+def _ph_terms_mg(gs, its, fls, dus, z0, dg: int, p: FlowParams):
     """Fine multigrid constituents (c, psi_s, d6) from the streamed g/it
     (gamma = 0)."""
     t = compute_terms(gs, its, fls, dus, p, _wctx(z0, dg))
     return t.c.float(), t.psi_s, data_block_d6(t)
 
 
-def _ph_mg_trapezoid(dus, cs, pss, d6s, z0: int, kbase: int, dg: int,
+def _ph_mg_trapezoid(dus, cs, pss, d6s, z0, kbase, dg: int,
                      p: FlowParams, sweeps: int, chunk: int):
     """Multigrid smoother chunk visit: (w, ainv) rebuilt from the streamed
     (psi_s, d6) on the slab, then the wavefront half-sweeps at mg_omega.
@@ -272,7 +319,7 @@ def _ph_mg_trapezoid(dus, cs, pss, d6s, z0: int, kbase: int, dg: int,
                              omega=p.mg_omega)
 
 
-def _ph_mg_residual(dus, cs, pss, d6s, z0: int, dg: int, p: FlowParams):
+def _ph_mg_residual(dus, cs, pss, d6s, z0, dg: int, p: FlowParams):
     return fine_residual(dus, cs, pss, d6s, p, _wctx(z0, dg))
 
 
@@ -309,11 +356,19 @@ def _stream_mg_solve(du, c, psi_s, d6, p: FlowParams, chunk: int,
         return _stream_sor_trapezoid(du, tarr, ph, p, chunk, st, sweeps=n)
 
     if len(shapes) > 1:
-        # The coarse system, restricted once per frozen system.
-        psi_c, d6_c = (torch.as_tensor(
-            _stream_resample(x, shapes[1], 0.0, chunk, st), device=st.device)
-            for x in (psi_s, d6))
+        # The coarse system, restricted once per frozen system, and the
+        # restricted residual: the V-cycle's inputs, in buffers that
+        # outlive its replays.
         coarse = tuple(tuple(s) for s in shapes[1:])
+        psi_c, d6_c = (
+            st.run.buffer(name, (*x.shape[:-3], *coarse[0])).copy_(
+                torch.from_numpy(_stream_resample(x, coarse[0], 0.0, chunk,
+                                                  st)))
+            for name, x in (("psi_c", psi_s), ("d6_c", d6)))
+        rc = st.run.buffer("rc", (3, *coarse[0]))
+        ec = st.run.buffer("ec", (3, *coarse[0]))
+        vcycle = st.run.phase(partial(_ph_coarse_vcycle, shapes=coarse,
+                                      gshape=gshape, p=p), ())
 
     for _ in range(p.mg_cycles):
         # The early stop compares with the iterate before the cycle, as
@@ -327,10 +382,10 @@ def _stream_mg_solve(du, c, psi_s, d6, p: FlowParams, chunk: int,
             r = np.empty_like(du)
             _stream(partial(_ph_mg_residual, dg=d, p=p), [du, *tarr], 1,
                     chunk, [r], st, pipeline=True)
-            rc = torch.as_tensor(_stream_resample(r, shapes[1], 0.0, chunk,
-                                                  st), device=st.device)
+            rc.copy_(torch.from_numpy(_stream_resample(r, shapes[1], 0.0,
+                                                       chunk, st)))
             del r
-            ec = _ph_coarse_vcycle(rc, psi_c, d6_c, coarse, gshape, p)
+            vcycle([rc, psi_c, d6_c], carry=(ec,))
             du += _stream_resample(ec.cpu().numpy(), gshape, 0.0, chunk, st)
             du = smooth_n(du, p.mg_post)
         if du_prev is not None:
@@ -339,7 +394,7 @@ def _stream_mg_solve(du, c, psi_s, d6, p: FlowParams, chunk: int,
     return du
 
 
-def _ph_fused_warp_iter(i0s, i1s, fls, carry, z0: int, kbase: int, dg: int,
+def _ph_fused_warp_iter(i0s, i1s, fls, carry, z0, kbase, dg: int,
                         p: FlowParams, sweeps: int, chunk: int):
     """A whole warp iteration for one chunk visit: warp + derivatives +
     terms + all 2*sweeps half-sweeps + median + accumulate + clamp.
@@ -383,15 +438,15 @@ def _ph_fused_warp_iter(i0s, i1s, fls, carry, z0: int, kbase: int, dg: int,
     return fl_new, new_carry
 
 
-def _ph_median(dus, z0: int, p: FlowParams):
+def _ph_median(dus, z0, p: FlowParams):
     return median3_op(dus, HaloCtx(), p)
 
 
-def _ph_smooth(xs, z0: int, sigma: float):
+def _ph_smooth(xs, z0, sigma: float):
     return smooth(xs, sigma, HaloCtx())
 
 
-def _ph_resample(xs, z0_out: int, z0_in: int, sigma: float, out_len: int,
+def _ph_resample(xs, z0_out, z0_in, sigma: float, out_len: int,
                  scale: float, in_global: int, out_hw: tuple[int, int]):
     if sigma > 0.0:
         xs = smooth(xs, sigma, HaloCtx())
@@ -431,9 +486,10 @@ def _stream_sor_trapezoid(du, terms, phase, p: FlowParams, chunk: int,
     d = du.shape[-3]
     s2 = 2 * (p.sweeps if sweeps is None else sweeps)
     size, los = _wave_slabs(d, chunk, s2, 1)
+    inputs = (du, *terms)
+    ph = st.phase(phase, inputs, size)
     for k, lo in enumerate(los):
-        slabs = [st.put(x, lo, size) for x in (du, *terms)]
-        res = phase(*slabs, lo, k * chunk)
+        (res,) = ph(st.put_all(ph, inputs, lo, size), (lo, k * chunk))
         w0 = max((k - 1) * chunk, 0)       # F_2S(k-1)
         w1 = min(k * chunk + s2, d)        # >= F_1(k)
         if w1 > w0:
@@ -446,13 +502,16 @@ def _stream_fused_warp_iteration(i0l, i1l, flow, p: FlowParams, chunk: int,
     """One whole warp iteration as a single streamed pass (see
     ``_ph_fused_warp_iter``): reads (i0, i1, flow) slabs, writes the new
     flow into a separate array, so launch k's copy back is drained after
-    launch k+1 is enqueued."""
+    launch k+1 is enqueued. The carried du band is a buffer of the runner
+    that each launch updates in place."""
     d, h, w = i0l.shape
     s2 = 2 * p.sweeps
     size, los = _wave_slabs(d, chunk, s2, mw)
     out = np.empty_like(flow)
-    carry = torch.zeros((3, s2 + 2, h, w), dtype=torch.float32,
-                        device=st.device)
+    inputs = (i0l, i1l, flow)
+    ph = st.phase(partial(_ph_fused_warp_iter, dg=d, p=p, sweeps=p.sweeps,
+                          chunk=chunk), inputs, size)
+    carry = st.run.buffer("carry", (3, s2 + 2, h, w)).zero_()
     pending = None  # (copy handle, write window w0:w1)
 
     def drain(pd):
@@ -462,9 +521,8 @@ def _stream_fused_warp_iteration(i0l, i1l, flow, p: FlowParams, chunk: int,
 
     for k, lo in enumerate(los):
         kbase = k * chunk
-        slabs = [st.put(x, lo, size) for x in (i0l, i1l, flow)]
-        fl_new, carry = _ph_fused_warp_iter(*slabs, carry, lo, kbase, d, p,
-                                            p.sweeps, chunk)
+        fl_new, _ = ph([*st.put_all(ph, inputs, lo, size), carry],
+                       (lo, kbase), carry=(None, carry))
         if p.median:
             w0 = max(kbase - chunk - 1, 0)
             w1 = d if kbase >= d else kbase - 1
@@ -493,6 +551,7 @@ def _stream(fn, inputs: list[np.ndarray], margin: int, chunk: int,
                          "inputs")
     d = inputs[0].shape[-3]
     size, los = _chunk_slabs(d, chunk, margin)
+    ph = st.phase(fn, inputs, size)
     pending = None  # (copy handles, z0, z1)
 
     def drain(pd):
@@ -504,10 +563,7 @@ def _stream(fn, inputs: list[np.ndarray], margin: int, chunk: int,
     for lo in los:
         z0 = lo + margin
         z1 = min(z0 + chunk, d)
-        slabs = [st.put(x, lo, size) for x in inputs]
-        res = fn(*slabs, lo)
-        if not isinstance(res, tuple):
-            res = (res,)
+        res = ph(st.put_all(ph, inputs, lo, size), (lo,))
         handles = [st.get(r.narrow(-3, margin, z1 - z0)) for r in res]
         if pipeline:
             drain(pending)
@@ -529,6 +585,9 @@ def _stream_resample(x: np.ndarray, out_shape, sigma: float, chunk: int,
     r = 0 if sigma <= 0 else (len(gaussian_kernel1d(sigma)) - 1) // 2
     win = int(math.ceil(chunk * scale)) + 2 * r + 4
     out = np.empty((*x.shape[:-3], dout, hout, wout), np.float32)
+    ph = st.phase(partial(_ph_resample, sigma=sigma, out_len=chunk,
+                          scale=scale, in_global=din, out_hw=(hout, wout)),
+                  (x,), win)
     pending = None  # (copy handle, o0, o1); x is never written
 
     def drain(pd):
@@ -539,8 +598,7 @@ def _stream_resample(x: np.ndarray, out_shape, sigma: float, chunk: int,
     for o0 in range(0, dout, chunk):
         o1 = min(o0 + chunk, dout)
         a = int(math.floor((o0 + 0.5) * scale - 0.5)) - 1 - r
-        ys = _ph_resample(st.put(x, a, win), o0, a, sigma, chunk, scale, din,
-                          (hout, wout))
+        (ys,) = ph(st.put_all(ph, (x,), a, win), (o0, a))
         drain(pending)
         pending = (st.get(ys[..., :o1 - o0, :, :]), o0, o1)
     drain(pending)
@@ -550,7 +608,7 @@ def _stream_resample(x: np.ndarray, out_shape, sigma: float, chunk: int,
     return out
 
 
-def _ph_fit(i0s, i1s, fls, z0: int, dg: int, p: FlowParams):
+def _ph_fit(i0s, i1s, fls, z0, dg: int, p: FlowParams):
     _, _, i1w = warp_and_derivatives(i0s, i1s, fls, p, _wctx(z0, dg), True)
     return (i1w - i0s).abs()
 
@@ -559,22 +617,28 @@ def registration_fit_streamed(i0, i1, flow, p: FlowParams, chunk_z: int,
                               device=None):
     """|warp(i1, flow) - i0| statistics (mean residual, max residual, mean
     unwarped |i1 - i0|) by streaming Z-chunks, so the device never holds a
-    whole volume. Device placement as in ``compute_flow_piecewise``."""
-    st = _Stager(default_device(device))
+    whole volume. Device placement and the graphs (the entry of the
+    streamed solve of the same params, volume shape and chunk, with the
+    default ``temporal_block`` and ``fuse``) as in
+    ``compute_flow_piecewise``."""
     if p.flow_clamp <= 0:
         p = p.replace(flow_clamp=DEFAULT_FLOW_CLAMP)
     i0 = np.asarray(i0, np.float32)
     i1 = np.asarray(i1, np.float32)
     flow = np.asarray(flow, np.float32)
+    dev = default_device(device)
+    st = _Stager(dev, _flow_runner(p, i0.shape, chunk_z, True, True, dev))
     d = i0.shape[-3]
     mw = stream_margin(p)
     size = chunk_z + 2 * mw
+    inputs = (i0, i1, flow)
+    ph = st.phase(partial(_ph_fit, dg=d, p=p), inputs, size)
     tot = mx = before = 0.0
     for z0 in range(0, d, chunk_z):
         z1 = min(z0 + chunk_z, d)
         lo = z0 - mw
-        slabs = [st.put(x, lo, size) for x in (i0, i1, flow)]
-        r = st.wait(st.get(_ph_fit(*slabs, lo, d, p)[mw:mw + z1 - z0]))
+        (r,) = ph(st.put_all(ph, inputs, lo, size), (lo,))
+        r = st.wait(st.get(r[mw:mw + z1 - z0]))
         r = r.numpy()
         tot += float(r.sum(dtype=np.float64))
         mx = max(mx, float(r.max()))
@@ -750,11 +814,77 @@ def level_plan(p: FlowParams, shape, chunk: int, temporal_block: bool = True,
     return plan
 
 
+# Float32 fields (on a slab plane) that each pass of ``level_plan`` copies to
+# the device and back: (inputs, results), the rank-1 sweep constants (c, g,
+# psi_s, psi_d) or the general ones (c, psi_s, ainv or d6) beside du.
+_STAGED = {"warp": (5, 4), "terms": (10, 5), "terms_mg": (10, 10),
+           "terms_gc": (8, 10), "median": (3, 3), "fused": (5, 3),
+           "mg_smooth": (13, 3), "mg_residual": (13, 3)}
+
+
+def _resampled(n: int, src, dst, sigma: float, chunk: int) -> int:
+    """Arena floats a ``_stream_resample`` slab of n fields stages in and
+    out."""
+    r = 0 if sigma <= 0 else (len(gaussian_kernel1d(sigma)) - 1) // 2
+    win = int(math.ceil(chunk * src[0] / dst[0])) + 2 * r + 4
+    return n * (graphs.aligned(win * src[1] * src[2])
+                + graphs.aligned(chunk * dst[1] * dst[2]))
+
+
+def stream_arena(p: FlowParams, shape, chunk: int, temporal_block: bool = True,
+                 fuse: bool = True) -> int:
+    """The most float32 elements any slab phase of a streamed call (the
+    solve of a volume of ``shape`` with Z-chunks of ``chunk``, its
+    ``temporal_block`` and ``fuse`` as ``compute_flow_piecewise`` takes
+    them, and the fit of its flow) copies to the device and back: the size
+    of the arena of its graphs' static inputs and results
+    (``graphs._StreamEntry``), each field aligned as the arena's views
+    are."""
+    if p.flow_clamp <= 0:
+        p = p.replace(flow_clamp=DEFAULT_FLOW_CLAMP)
+    shapes = p.level_shapes(tuple(shape))
+    sweep = 13 if p.gamma > 0.0 else 11   # du + the sweep constants
+    staged = {**_STAGED, "sor": (sweep, 3), "halfsweep": (sweep, 3),
+              "jacobi": (sweep, 3)}
+    hw0 = shapes[0][1] * shapes[0][2]
+    most = 6 * graphs.aligned((chunk + 2 * stream_margin(p)) * hw0)  # fit
+    if p.presmooth_sigma > 0:
+        r = (len(gaussian_kernel1d(p.presmooth_sigma)) - 1) // 2
+        most = max(most, 2 * graphs.aligned((chunk + 2 * r) * hw0))
+    for li, shp in enumerate(shapes):
+        hw = shp[1] * shp[2]
+        for ps in level_plan(p, shp, chunk, temporal_block, fuse):
+            most = max(most, sum(staged[ps.name])
+                       * graphs.aligned(ps.planes * hw))
+        if li + 1 < len(shapes):
+            most = max(most, _resampled(1, shp, shapes[li + 1],
+                                        p.aa_sigma(), chunk),
+                       _resampled(3, shapes[li + 1], shp, 0.0, chunk))
+        mgs = mg_shapes(tuple(shp), 1)
+        if p.solver == "multigrid" and len(mgs) > 1:
+            most = max(most, _resampled(6, shp, mgs[1], 0.0, chunk),
+                       _resampled(3, mgs[1], shp, 0.0, chunk))
+    return most
+
+
+def _flow_runner(p: FlowParams, shape, chunk: int, temporal_block: bool,
+                 fuse: bool, device, eager: bool = False):
+    """The runner of the streamed solve of ``p`` on a volume of ``shape``
+    in Z-chunks of ``chunk`` (``graphs.stream_runner``), keyed on the shape
+    padded to ``p.z_multiple`` as the solve pads it: the solve and the fit
+    of its flow share one entry."""
+    shape = p.level_shapes(tuple(shape))[0]
+    return graphs.stream_runner(
+        ("flow", p, shape, chunk, temporal_block, fuse), device, eager,
+        stream_arena(p, shape, chunk, temporal_block, fuse))
+
+
 def compute_flow_piecewise(i0, i1, params: FlowParams = FlowParams(),
                            chunk_z: int = 32,
                            checkpoint_dir: str | None = None,
                            temporal_block: bool = True, fuse: bool = True,
-                           timer=None, device=None) -> np.ndarray:
+                           timer=None, device=None,
+                           eager: bool = False) -> np.ndarray:
     """Dense 3D optical flow for volumes past the device's memory or the
     kernels' index limits.
 
@@ -772,10 +902,16 @@ def compute_flow_piecewise(i0, i1, params: FlowParams = FlowParams(),
     half-sweep); ``fuse``: one streamed pass per warp iteration when
     inner_iterations == 1 under SOR. ``timer``: an optional
     ``utils.profiling.PhaseTimer`` (presmooth, pyramid, per-level solve
-    and upsample). Returns the (3, D, H, W) float32 flow as a numpy
-    array."""
-    st = _Stager(default_device(device))
-    check_supported(params, torch.empty(0, device=st.device))
+    and upsample). On a CUDA device every slab phase replays a CUDA graph
+    of the streamed entry of (params, the padded volume shape, chunk_z,
+    temporal_block, fuse), captured at its first slab
+    (``graphs.stream_runner``; a later call with the same key captures
+    nothing, ``graphs.clear()`` releases it); ``eager`` calls the phases
+    directly instead, with the origins as Python ints: the witness a
+    graphed run is held to. Returns the (3, D, H, W) float32 flow as a
+    numpy array."""
+    dev = default_device(device)
+    check_supported(params, torch.empty(0, device=dev))
     phase = PhaseTimer.maybe(timer)
 
     p = params
@@ -802,6 +938,8 @@ def compute_flow_piecewise(i0, i1, params: FlowParams = FlowParams(),
         i0 = (i0 - mn) * scale
         i1 = (i1 - mn) * scale
 
+    st = _Stager(dev, _flow_runner(p, i0.shape, chunk_z, temporal_block,
+                                   fuse, dev, eager))
     if p.presmooth_sigma > 0:
         with phase("presmooth"):
             r = (len(gaussian_kernel1d(p.presmooth_sigma)) - 1) // 2

@@ -131,12 +131,15 @@ def consistency_error(flow_fwd: np.ndarray, flow_bwd: np.ndarray,
     ``device`` (the GPU unless the caller names another; where there is
     none that raises, pass ``device="cpu"``), so the device never holds
     both whole flow fields. The warp margin is taken from the forward
-    field (it bounds the Z reach of the backward-flow samples)."""
-    import torch
+    field (it bounds the Z reach of the backward-flow samples). On a CUDA
+    device the slab is one CUDA graph replayed for every chunk, its origin
+    in device memory (``graphs.stream_runner``, as the streamed solve's
+    phases)."""
+    from functools import partial
 
-    from tpuflow3d_torch.grid import HaloCtx
+    from tpuflow3d_torch import graphs
+    from tpuflow3d_torch.piecewise import _Stager
     from tpuflow3d_torch.pipeline import default_device
-    from tpuflow3d_torch.warp import warp_volume
 
     dev = default_device(device)
     ff = np.asarray(flow_fwd, np.float32)
@@ -147,18 +150,32 @@ def consistency_error(flow_fwd: np.ndarray, flow_bwd: np.ndarray,
     chunk = min(chunk_z, d)
     size = chunk + 2 * mw
 
+    st = _Stager(dev, graphs.stream_runner(
+        ("consistency", interp, ff.shape, chunk), dev,
+        arena=7 * graphs.aligned(size * ff.shape[-2] * ff.shape[-1])))
+    ph = st.phase(partial(_consistency_slab, dg=d, interp=interp), (ff, fb),
+                  size)
     out = np.empty(ff.shape[1:], np.float32)
     for z0 in range(0, d, chunk):
         z1 = min(z0 + chunk, d)
         lo = z0 - mw
-        ctx = HaloCtx(window_z0=lo, window_d_global=d)
-        ffs = torch.as_tensor(_slab(ff, lo, size), device=dev)
-        fbs = torch.as_tensor(_slab(fb, lo, size), device=dev)
-        bw = torch.stack([warp_volume(fbs[c], ffs, ctx, interp=interp)
-                          for c in range(3)])
-        r = torch.sqrt(torch.sum((ffs + bw) ** 2, dim=0))
-        out[z0:z1] = r[mw:mw + (z1 - z0)].cpu().numpy()
+        (r,) = ph(st.put_all(ph, (ff, fb), lo, size), (lo,))
+        st.store(out[z0:z1], st.get(r[mw:mw + (z1 - z0)]))
     return out
+
+
+def _consistency_slab(ffs, fbs, z0, dg: int, interp: str):
+    """|s_f + s_b(x + s_f)| on a slab of the forward and backward flows
+    whose plane 0 is global plane z0 (an int or a 0-d tensor)."""
+    import torch
+
+    from tpuflow3d_torch.grid import HaloCtx
+    from tpuflow3d_torch.warp import warp_volume
+
+    ctx = HaloCtx(window_z0=z0, window_d_global=dg)
+    bw = torch.stack([warp_volume(fbs[c], ffs, ctx, interp=interp)
+                      for c in range(3)])
+    return torch.sqrt(torch.sum((ffs + bw) ** 2, dim=0))
 
 
 def write_derived(prefix: str, flow: np.ndarray, which) -> list[str]:

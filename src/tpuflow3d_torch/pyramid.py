@@ -48,12 +48,13 @@ def smooth(x: torch.Tensor, sigma: float, ctx: HaloCtx = HaloCtx()) -> torch.Ten
     return x
 
 
-def _axis_coords(out_len_local: int, scale: float, z0_out: int,
+def _axis_coords(out_len_local: int, scale: float, z0_out,
                  dtype=torch.float32, device=None) -> torch.Tensor:
     """Half-pixel source coordinates for a local output window: output index
     i (local) at global offset z0_out samples global input coordinate
     (i + z0_out + 0.5) * scale - 0.5, scale = in_global/out_global rounded
-    to ``dtype``."""
+    to ``dtype``. z0_out is an int or a 0-d integer tensor (a graphed
+    slab's): i + z0_out is exact in float32 either way."""
     i = torch.arange(out_len_local, dtype=dtype, device=device)
     return (i + z0_out + 0.5) * float(np.float32(scale)) - 0.5
 
@@ -77,15 +78,16 @@ def resize_axis_local(x: torch.Tensor, out_len: int, axis: int) -> torch.Tensor:
     return a * (1.0 - f) + b * f
 
 
-def resize_z_window(xp: torch.Tensor, out_len: int, z0_out: int, z0_in: int,
+def resize_z_window(xp: torch.Tensor, out_len: int, z0_out, z0_in,
                     nh: int, scale: float, in_global: int) -> torch.Tensor:
     """Windowed Z resize: xp is an input window padded by nh planes whose
     plane 0 is global input plane (z0_in - nh); makes ``out_len`` output
     planes starting at global output plane z0_out. The streamed pyramid
     (``piecewise._stream_resample``) resizes its slabs with it, with the
-    arithmetic of the in-core ``resize_axis_local`` along Z. Indices are
-    clipped into the window, so an off-by-one reads an edge plane instead
-    of failing silently elsewhere."""
+    arithmetic of the in-core ``resize_axis_local`` along Z. The origins
+    are ints or 0-d integer tensors. Indices are clipped into the window,
+    so an off-by-one reads an edge plane instead of failing silently
+    elsewhere."""
     c = _axis_coords(out_len, scale, z0_out, xp.dtype, xp.device)
     c = c.clamp(0.0, in_global - 1)
     fl = torch.floor(c)

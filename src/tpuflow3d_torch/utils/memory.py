@@ -21,7 +21,13 @@ under-predicts the port's in-core peak (0.37x at 512^3 for ``ladder512``).
   allocated peak and what the entry holds.
 - Streamed, the peak is the largest phase: fields per slab plane times
   the slab's planes (the chunk plus that phase's margins), and for
-  multigrid the device-resident coarse chain of the V-cycle.
+  multigrid the device-resident coarse chain of the V-cycle. On the GPU
+  the phases replay CUDA graphs (``graphs.stream_runner``) whose entry
+  holds, until ``graphs.clear()``, an arena of the most that one phase
+  stages in and out (``piecewise.stream_arena``) and the graphs' pool,
+  where the replays' working sets live: the model is the arena plus
+  ``_STREAM_POOL`` times the largest phase (measured on the pool's
+  reserved bytes: the pool keeps what every level's graphs need).
 - Both are multiplied by ``ALLOCATOR_HEADROOM``: the caching allocator's
   reserve over its allocated bytes reached 1.30x in-core (the reserved
   peak is what has to fit); a streamed run's cached blocks are all freed
@@ -96,6 +102,15 @@ MG_CHANNELS = 48
 # phases: the restricted psi_s and d6, the restricted residual and the
 # coarse correction (10-13 measured).
 _MG_INPUT_CHANNELS = 13
+# The streamed graphs' pool (its reserved segments) against the largest
+# phase's working set or the multigrid's coarse chain: the pool keeps the
+# replays' working sets of every level, which the graphs share only where
+# the allocator's blocks fit. Measured over tools/torch_memory_peaks.py's
+# 26 streamed runs, reserved bytes included (NVIDIA H100 80GB HBM3, 700 W):
+# up to 1.85 for multigrid without gradient constancy (passes of one size,
+# and the coarse chain beside them), 1.70 with 5-point stencils (the plain
+# warp), 1.32 for the others; the smoke's full pyramids 0.33-1.63 (held).
+_STREAM_POOL = {"multigrid": 1.9, "order4": 1.75, "other": 1.5}
 
 
 def _finest(shape, p) -> tuple[int, int, int]:
@@ -223,10 +238,16 @@ def mg_coarse_resident_bytes(shape, p) -> int:
 
 def streamed_peak_bytes(shape, p, chunk: int) -> int:
     """Device bytes a streamed run (``compute_flow_piecewise``, the kernels
-    on the GPU) of a (D, H, W) volume with Z-chunks of ``chunk`` planes
-    needs: its largest phase (slab planes times fields per plane, the
-    multigrid's restricted inputs beside the slab) or the multigrid
-    V-cycle's coarse chain, times ``ALLOCATOR_HEADROOM``."""
+    on the GPU, replayed from its graphs) of a (D, H, W) volume with
+    Z-chunks of ``chunk`` planes needs, and its graphs hold after it: its
+    largest phase (slab planes times fields per plane, the multigrid's
+    restricted inputs beside the slab) or the multigrid V-cycle's coarse
+    chain, times ``_STREAM_POOL`` (the graphs' pool, reserved bytes: no
+    ``ALLOCATOR_HEADROOM`` on top), plus the arena of the phases' static
+    inputs and results."""
+    from tpuflow3d_torch.piecewise import stream_arena
+
+    arena = 4 * stream_arena(p, shape, chunk)
     shape = _finest(shape, p)
     _, h, w = shape
     plane = 4 * h * w
@@ -236,8 +257,10 @@ def streamed_peak_bytes(shape, p, chunk: int) -> int:
     if reserve:
         coarse = mg_shapes(shape, 1)[1]
         slab += 4 * _MG_INPUT_CHANNELS * int(np.prod(coarse))
-    allocated = max(slab, reserve) + _FIXED_BYTES
-    return int(ALLOCATOR_HEADROOM * allocated)
+    kind = ("multigrid" if p.solver == "multigrid" and p.gamma <= 0.0 else
+            "order4" if p.deriv_order == 4 else "other")
+    return int(_STREAM_POOL[kind] * max(slab, reserve) + arena
+               + _FIXED_BYTES)
 
 
 def _slabs_fit_index_limits(shape, p, chunk: int) -> bool:

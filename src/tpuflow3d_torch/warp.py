@@ -158,8 +158,13 @@ def warp_volume(i1: torch.Tensor, flow: torch.Tensor, ctx: HaloCtx = HaloCtx(),
     d_global = ctx.d_global(d)
     if ctx.is_window:
         z0 = ctx.z0(d)
-        cz = (zi + flow[0]).clamp(float(-z0), float(d_global - 1 - z0)) \
-            .clamp(0.0, d - 1)
+        if isinstance(z0, torch.Tensor):
+            # A device origin: the bounds as float32 tensors, the values
+            # the Python floats below hold (integers, exact in float32).
+            lo, hi = (-z0).to(flow.dtype), (d_global - 1 - z0).to(flow.dtype)
+        else:
+            lo, hi = float(-z0), float(d_global - 1 - z0)
+        cz = (zi + flow[0]).clamp(lo, hi).clamp(0.0, d - 1)
     else:
         cz = (zi + flow[0]).clamp(0.0, d_global - 1)
     return gather(i1, cz, cy, cx)

@@ -233,7 +233,10 @@ def test_level_plan_is_what_the_mode_runs(monkeypatch, name,
 
     def record(fn, phase):
         def wrapped(*args, **kw):
-            z0 = next(a for a in args if isinstance(a, int))
+            # The slab's origin: an int, or a 0-d tensor (on the CPU the
+            # phases take their origins as the card's graphs do).
+            z0 = next(int(a) for a in args if isinstance(a, int) or (
+                isinstance(a, torch.Tensor) and a.ndim == 0))
             seen.add((level[0], phase, args[0].shape[-3], z0))
             return fn(*args, **kw)
         return wrapped

@@ -237,9 +237,9 @@ def fused_gaps(size: int, chunk: int = 16) -> dict:
                                     fuse=False)
     real = pw._ph_fused_warp_iter
 
-    def shifted(i0s, i1s, fls, carry, *rest):
+    def shifted(i0s, i1s, fls, carry, *rest, **kw):
         return real(i0s, i1s, fls, torch.cat([carry[:, 1:], carry[:, -1:]],
-                                             1), *rest)
+                                             1), *rest, **kw)
 
     pw._ph_fused_warp_iter = shifted
     try:
