@@ -104,6 +104,7 @@ from tpuflow3d_torch.pipeline import (accumulate, gc_terms, prepare_pyramids,
 from tpuflow3d_torch.pyramid import upsample_flow
 from tpuflow3d_torch.solver import (inner_steps, inner_system, iterate_du,
                                     parity_mask, relax_step)
+from tpuflow3d_torch.utils import profiling
 from tpuflow3d_torch.utils.profiling import PhaseTimer
 
 _CTX = HaloCtx()
@@ -238,13 +239,15 @@ def _solve_level(run, i0l, i1l, flow, li: int, p: FlowParams, residuals):
             if k:
                 run(("terms", li), terms, (g, it, flow, state, gc),
                     carry=(step, state))
-            for s in range(inner_steps(p)):
-                _, r, more = run(("body", li), body, (state, step),
-                                 carry=(state, None, None))
-                if residuals is not None:
-                    residuals[li, wi, k * p.sweeps + s] = r
-                if not bool(more):
-                    break
+            # The sweeps (V-cycles) and the host read of each stop test.
+            with profiling.span("tf3d.early_stop"):
+                for s in range(inner_steps(p)):
+                    _, r, more = run(("body", li), body, (state, step),
+                                     carry=(state, None, None))
+                    if residuals is not None:
+                        residuals[li, wi, k * p.sweeps + s] = r
+                    if not bool(more):
+                        break
         run(("post", li), post, (state, flow), carry=(flow,))
 
 
@@ -269,11 +272,18 @@ def _carried(outs, carry):
     return tuple(outs)
 
 
+def _span_name(segment: str) -> str:
+    """The tracer's span of a segment's replays (or direct calls)."""
+    return f"tf3d.replay.{segment}"
+
+
 class _Direct:
     """The segments called one after another (a device without graphs)."""
 
     def __call__(self, key, fn, args, carry=None):
-        return _carried(fn(*args), carry)
+        with profiling.span(_span_name(key[0])):
+            outs = fn(*args)
+        return _carried(outs, carry)
 
     def zeros(self, key, shape, dtype, device):
         return torch.zeros(shape, dtype=dtype, device=device)
@@ -286,6 +296,8 @@ class _Graph(NamedTuple):
     args: list         # the tensors it reads, as captured
     outs: tuple        # its results, the carried ones in their destinations
     launches: dict     # the kernel launches of one replay
+    label: tuple       # its key in ``replays_by_key``
+    span: str          # the tracer's span around its replays
 
 
 def _level(key) -> int | None:
@@ -309,7 +321,13 @@ class _Held:
         self.graphs: dict = {}
         self.outside: dict = {}
         self.stats = {"captures": 0, "capture_seconds": 0.0, "replays": 0,
-                      "warmup_launches": 0}
+                      "replays_by_key": {}, "warmup_launches": 0}
+
+    def label(self, key) -> tuple:
+        """How ``replays_by_key`` names the graph of ``key``: the segment
+        and its level (in core), the phase and its slab shapes
+        (streamed)."""
+        return key
 
     def _record(self, key, fn, args, carry) -> _Graph:
         """Warm ``fn`` up on ``args`` on the side stream (its memory from
@@ -339,7 +357,9 @@ class _Held:
             raise
         self.stats["captures"] += 1
         self.stats["capture_seconds"] += time.perf_counter() - t0
-        g = self.graphs[key] = _Graph(graph, _tensors(args), outs, launches)
+        label = self.label(key)
+        g = self.graphs[key] = _Graph(graph, _tensors(args), outs, launches,
+                                      label, _span_name(label[0]))
         return g
 
     def _replay(self, key, g: _Graph, args) -> tuple:
@@ -348,9 +368,12 @@ class _Held:
                 a is not b for a, b in zip(leaves, g.args)):
             raise RuntimeError(f"graph {key}: called on other tensors than "
                                f"it was captured with")
-        g.graph.replay()
+        with profiling.span(g.span):
+            g.graph.replay()
         kernels.add_launches(g.launches)
         self.stats["replays"] += 1
+        by_key = self.stats["replays_by_key"]
+        by_key[g.label] = by_key.get(g.label, 0) + 1
         return g.outs
 
     def static_bytes(self) -> int:
@@ -368,6 +391,7 @@ class _Held:
 
     def info(self) -> dict:
         return {"kind": self.kind, "graphs": len(self.graphs), **self.stats,
+                "replays_by_key": dict(self.stats["replays_by_key"]),
                 "static_bytes": self.static_bytes(),
                 "pool_bytes": self.pool_bytes()}
 
@@ -495,11 +519,19 @@ def _phase_key(fn, shapes) -> tuple:
     return (fn, (), (), shapes)
 
 
+def _phase_name(fn) -> str:
+    """A slab phase's function's name without its ``_ph_`` (``_``)
+    prefix: ``sor_trapezoid``."""
+    name = getattr(fn, "func", fn).__name__
+    return name[4:] if name.startswith("_ph_") else name.lstrip("_")
+
+
 class _DirectPhase:
     """A slab phase called directly (``_StreamDirect``)."""
 
     def __init__(self, run, fn, n_inputs: int):
         self.run, self.fn = run, fn
+        self.span = _span_name(_phase_name(fn))
         # Nothing to stage into: the stager makes each slab's tensors.
         self.inputs = [None] * n_inputs
 
@@ -509,7 +541,9 @@ class _DirectPhase:
         if self.run.tensors:
             origins = [torch.tensor(v, dtype=torch.int32,
                                     device=self.run.device) for v in origins]
-        return _carried(_outputs(self.fn(*args, *origins)), carry)
+        with profiling.span(self.span):
+            outs = _outputs(self.fn(*args, *origins))
+        return _carried(outs, carry)
 
 
 class _StreamDirect:
@@ -603,6 +637,9 @@ class _StreamEntry(_Held):
         self.arena = self.outside["arena"] = torch.empty(
             arena, dtype=torch.float32, device=device)
         self.owned = {id(self.arena)}   # ids of the tensors a phase may read
+
+    def label(self, key) -> tuple:
+        return (_phase_name(key[0]), key[-1])
 
     def views(self, likes, start: int) -> tuple:
         """Float32 tensors of the shapes of ``likes`` (shapes or tensors)

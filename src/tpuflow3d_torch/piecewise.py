@@ -84,7 +84,7 @@ from tpuflow3d_torch.pyramid import (gaussian_kernel1d, resize_axis_local,
                                      resize_z_window, smooth)
 from tpuflow3d_torch.solver import (compute_terms, jacobi_sweep, parity_mask,
                                     sor_halfsweep, sweep_terms)
-from tpuflow3d_torch.utils import native
+from tpuflow3d_torch.utils import native, profiling
 from tpuflow3d_torch.utils.profiling import PhaseTimer
 
 DEFAULT_FLOW_CLAMP = 4.0
@@ -109,25 +109,30 @@ class _Stager:
             out: torch.Tensor | None = None) -> torch.Tensor:
         """The slab [lo, lo+size) of host array x along axis -3, planes
         outside the volume replicating its faces, on the device: copied
-        into ``out`` (a graph's static input) when it is given."""
-        d = x.shape[-3]
-        src = torch.from_numpy(x)
-        buf = torch.empty((*x.shape[:-3], size, *x.shape[-2:]),
-                          dtype=src.dtype, pin_memory=self.cuda)
-        n_lo = min(max(-lo, 0), size)                  # planes below 0
-        n_hi = min(max(lo + size - d, 0), size - n_lo)  # planes from d on
-        mid = size - n_lo - n_hi
-        if mid:
-            buf.narrow(-3, n_lo, mid).copy_(src.narrow(-3, lo + n_lo, mid))
-        if n_lo:
-            buf.narrow(-3, 0, n_lo).copy_(
-                src.narrow(-3, 0, 1).expand_as(buf.narrow(-3, 0, n_lo)))
-        if n_hi:
-            top = buf.narrow(-3, size - n_hi, n_hi)
-            top.copy_(src.narrow(-3, d - 1, 1).expand_as(top))
-        if out is not None:
-            return out.copy_(buf, non_blocking=True)
-        return buf.to(self.device, non_blocking=True) if self.cuda else buf
+        into ``out`` (a graph's static input) when it is given. Counts the
+        slab's bytes (``stage.h2d_bytes``)."""
+        with profiling.span("tf3d.stage.put"):
+            d = x.shape[-3]
+            src = torch.from_numpy(x)
+            buf = torch.empty((*x.shape[:-3], size, *x.shape[-2:]),
+                              dtype=src.dtype, pin_memory=self.cuda)
+            n_lo = min(max(-lo, 0), size)                  # planes below 0
+            n_hi = min(max(lo + size - d, 0), size - n_lo)  # planes from d on
+            mid = size - n_lo - n_hi
+            if mid:
+                buf.narrow(-3, n_lo, mid).copy_(
+                    src.narrow(-3, lo + n_lo, mid))
+            if n_lo:
+                buf.narrow(-3, 0, n_lo).copy_(
+                    src.narrow(-3, 0, 1).expand_as(buf.narrow(-3, 0, n_lo)))
+            if n_hi:
+                top = buf.narrow(-3, size - n_hi, n_hi)
+                top.copy_(src.narrow(-3, d - 1, 1).expand_as(top))
+            profiling.count("stage.h2d_bytes", buf.nbytes)
+            if out is not None:
+                return out.copy_(buf, non_blocking=True)
+            return (buf.to(self.device, non_blocking=True) if self.cuda
+                    else buf)
 
     def phase(self, fn, inputs, size: int):
         """The runner's handle of slab phase ``fn`` over slabs of ``size``
@@ -141,27 +146,32 @@ class _Stager:
                 for x, out in zip(inputs, ph.inputs)]
 
     def get(self, t: torch.Tensor):
-        """Start t's copy to the host; ``wait`` or ``store`` finish it."""
-        if not self.cuda:
-            # A copy, as on the card: a runner's results may be overwritten
-            # by its next phase.
-            return t.clone(), None
-        buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        buf.copy_(t, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        return buf, done
+        """Start t's copy to the host; ``wait`` or ``store`` finish it.
+        Counts its bytes (``stage.d2h_bytes``)."""
+        with profiling.span("tf3d.stage.get"):
+            profiling.count("stage.d2h_bytes", t.nbytes)
+            if not self.cuda:
+                # A copy, as on the card: a runner's results may be
+                # overwritten by its next phase.
+                return t.clone(), None
+            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            buf.copy_(t, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            return buf, done
 
     @staticmethod
     def wait(handle) -> torch.Tensor:
-        buf, done = handle
-        if done is not None:
-            done.synchronize()
-        return buf
+        with profiling.span("tf3d.stage.wait"):
+            buf, done = handle
+            if done is not None:
+                done.synchronize()
+            return buf
 
     def store(self, out: np.ndarray, handle) -> None:
         """Write a result into a host array (a view of one)."""
-        torch.from_numpy(out).copy_(self.wait(handle))
+        with profiling.span("tf3d.stage.store"):
+            torch.from_numpy(out).copy_(self.wait(handle))
 
 
 def _wctx(z0, dg: int) -> HaloCtx:
@@ -583,7 +593,7 @@ def _stream_resample(x: np.ndarray, out_shape, sigma: float, chunk: int,
     dout, hout, wout = out_shape
     scale = din / dout
     r = 0 if sigma <= 0 else (len(gaussian_kernel1d(sigma)) - 1) // 2
-    win = int(math.ceil(chunk * scale)) + 2 * r + 4
+    win = _resample_window(din, dout, sigma, chunk)
     out = np.empty((*x.shape[:-3], dout, hout, wout), np.float32)
     ph = st.phase(partial(_ph_resample, sigma=sigma, out_len=chunk,
                           scale=scale, in_global=din, out_hw=(hout, wout)),
@@ -669,6 +679,14 @@ def _fused(p: FlowParams, temporal_block: bool, fuse: bool) -> bool:
             and p.inner_iterations == 1)
 
 
+def _host(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``: the level loop's own host numpy on whole
+    level arrays (``np.empty``, ``np.zeros``, ``flow + du``, ``np.clip``),
+    under the tracer's ``tf3d.stream.host_arrays``."""
+    with profiling.span("tf3d.stream.host_arrays"):
+        return fn(*args, **kwargs)
+
+
 def _solve_level_streamed(i0l, i1l, flow, p: FlowParams, chunk: int,
                           st: _Stager, temporal_block: bool = True,
                           fuse: bool = True):
@@ -686,19 +704,19 @@ def _solve_level_streamed(i0l, i1l, flow, p: FlowParams, chunk: int,
     vol3, vol1 = (3, d, h, w), (d, h, w)
     for _ in range(p.warps):
         if not gamma:
-            g = np.empty(vol3, np.float32)
-            it = np.empty(vol1, np.float32)
+            g = _host(np.empty, vol3, np.float32)
+            it = _host(np.empty, vol1, np.float32)
             _stream(partial(_ph_warp_deriv, dg=d, p=p), [i0l, i1l, flow],
                     mw, chunk, [g, it], st, pipeline=True)
-        du = np.zeros(vol3, np.float32)
+        du = _host(np.zeros, vol3, np.float32)
         for _k in range(p.inner_iterations):
-            c = np.empty(vol3, np.float32)
-            pss = np.empty(vol1, np.float32)
+            c = _host(np.empty, vol3, np.float32)
+            pss = _host(np.empty, vol1, np.float32)
             if mg:
                 # Streamed multigrid: the constituents (c, psi_s, d6),
                 # then V-cycles with streamed fine smooths and the coarse
                 # chain on the device.
-                d6 = np.empty((6, d, h, w), np.float32)
+                d6 = _host(np.empty, (6, d, h, w), np.float32)
                 if gamma:
                     _stream(partial(_ph_terms_gc, dg=d, p=p, mg=True),
                             [i0l, i1l, flow, du], mw, chunk, [c, pss, d6],
@@ -713,13 +731,13 @@ def _solve_level_streamed(i0l, i1l, flow, p: FlowParams, chunk: int,
                 # Warp, derivatives and the second-derivative terms are
                 # recomputed in the terms phase from the raw inputs (no
                 # g/it/gc host arrays); the sweeps read (c, psi_s, ainv).
-                ainv = np.empty((6, d, h, w), np.float32)
+                ainv = _host(np.empty, (6, d, h, w), np.float32)
                 _stream(partial(_ph_terms_gc, dg=d, p=p),
                         [i0l, i1l, flow, du], mw, chunk, [c, pss, ainv], st,
                         pipeline=True)
                 tarr = [c, pss, ainv]
             else:
-                psd = np.empty(vol1, np.float32)
+                psd = _host(np.empty, vol1, np.float32)
                 _stream(partial(_ph_terms, dg=d, p=p), [g, it, flow, du],
                         TERMS_MARGIN, chunk, [c, pss, psd], st,
                         pipeline=True)
@@ -739,18 +757,18 @@ def _solve_level_streamed(i0l, i1l, flow, p: FlowParams, chunk: int,
                                 [du, *tarr], 1, chunk, [du], st)
             else:
                 for _s in range(p.sweeps):
-                    du_new = np.empty_like(du)
+                    du_new = _host(np.empty_like, du)
                     _stream(partial(_ph_jacobi, dg=d, p=p), [du, *tarr], 1,
                             chunk, [du_new], st, pipeline=True)
                     du = du_new
         if p.median:
-            du_m = np.empty_like(du)
+            du_m = _host(np.empty_like, du)
             _stream(partial(_ph_median, p=p), [du], 1, chunk, [du_m], st,
                     pipeline=True)
             du = du_m
-        flow = flow + du
+        flow = _host(np.add, flow, du)
         if p.flow_clamp > 0:
-            np.clip(flow, -p.flow_clamp, p.flow_clamp, out=flow)
+            _host(np.clip, flow, -p.flow_clamp, p.flow_clamp, out=flow)
     return flow
 
 
@@ -822,11 +840,25 @@ _STAGED = {"warp": (5, 4), "terms": (10, 5), "terms_mg": (10, 10),
            "mg_smooth": (13, 3), "mg_residual": (13, 3)}
 
 
+def _staged(p: FlowParams) -> dict:
+    """``_STAGED`` with the sweep passes' fields under ``p``: du and the
+    sweep constants."""
+    sweep = 13 if p.gamma > 0.0 else 11
+    return {**_STAGED, "sor": (sweep, 3), "halfsweep": (sweep, 3),
+            "jacobi": (sweep, 3)}
+
+
+def _resample_window(din: int, dout: int, sigma: float, chunk: int) -> int:
+    """The input planes of a ``_stream_resample`` slab from ``din`` planes
+    to ``dout``."""
+    r = 0 if sigma <= 0 else (len(gaussian_kernel1d(sigma)) - 1) // 2
+    return int(math.ceil(chunk * din / dout)) + 2 * r + 4
+
+
 def _resampled(n: int, src, dst, sigma: float, chunk: int) -> int:
     """Arena floats a ``_stream_resample`` slab of n fields stages in and
     out."""
-    r = 0 if sigma <= 0 else (len(gaussian_kernel1d(sigma)) - 1) // 2
-    win = int(math.ceil(chunk * src[0] / dst[0])) + 2 * r + 4
+    win = _resample_window(src[0], dst[0], sigma, chunk)
     return n * (graphs.aligned(win * src[1] * src[2])
                 + graphs.aligned(chunk * dst[1] * dst[2]))
 
@@ -843,9 +875,7 @@ def stream_arena(p: FlowParams, shape, chunk: int, temporal_block: bool = True,
     if p.flow_clamp <= 0:
         p = p.replace(flow_clamp=DEFAULT_FLOW_CLAMP)
     shapes = p.level_shapes(tuple(shape))
-    sweep = 13 if p.gamma > 0.0 else 11   # du + the sweep constants
-    staged = {**_STAGED, "sor": (sweep, 3), "halfsweep": (sweep, 3),
-              "jacobi": (sweep, 3)}
+    staged = _staged(p)
     hw0 = shapes[0][1] * shapes[0][2]
     most = 6 * graphs.aligned((chunk + 2 * stream_margin(p)) * hw0)  # fit
     if p.presmooth_sigma > 0:
@@ -865,6 +895,45 @@ def stream_arena(p: FlowParams, shape, chunk: int, temporal_block: bool = True,
             most = max(most, _resampled(6, shp, mgs[1], 0.0, chunk),
                        _resampled(3, mgs[1], shp, 0.0, chunk))
     return most
+
+
+def stream_h2d_bytes(p: FlowParams, shape, chunk: int,
+                     temporal_block: bool = True, fuse: bool = True) -> int:
+    """The bytes ``compute_flow_piecewise`` stages to the device for one
+    pair of ``shape`` in Z-chunks of ``chunk`` (what the tracer's
+    ``stage.h2d_bytes`` counts): every slab of every pass of
+    ``level_plan``, as often as the level loop runs it, and of the
+    presmoothing, pyramid and flow upsampling passes. SOR and Jacobi only:
+    how many V-cycles the streamed multigrid runs is decided on the way."""
+    if p.solver == "multigrid":
+        raise ValueError("the streamed multigrid's staging depends on its "
+                         "early stop")
+    zm = p.z_multiple
+    shapes = p.level_shapes((zm * -(-int(shape[0]) // zm), *shape[1:]))
+    staged = _staged(p)
+    inner = p.warps * p.inner_iterations
+    times = {"fused": p.warps, "warp": p.warps, "median": p.warps,
+             "terms": inner, "terms_gc": inner, "sor": inner,
+             "halfsweep": inner * 2 * p.sweeps, "jacobi": inner * p.sweeps}
+
+    def resampled(n, src, dst, sigma):
+        return (n * _resample_window(src[0], dst[0], sigma, chunk) * src[1]
+                * src[2] * -(-dst[0] // chunk))
+
+    floats = 0
+    if p.presmooth_sigma > 0:
+        r = (len(gaussian_kernel1d(p.presmooth_sigma)) - 1) // 2
+        size, los = _chunk_slabs(shapes[0][0], chunk, r)
+        floats += 2 * size * len(los) * shapes[0][1] * shapes[0][2]
+    for li, shp in enumerate(shapes):
+        if li + 1 < len(shapes):
+            floats += 2 * resampled(1, shp, shapes[li + 1], p.aa_sigma())
+            floats += resampled(3, shapes[li + 1], shp, 0.0)
+        floats += sum(staged[ps.name][0] * times[ps.name] * ps.planes
+                      * len(ps.z0s) * shp[1] * shp[2]
+                      for ps in level_plan(p, shp, chunk, temporal_block,
+                                           fuse))
+    return 4 * floats
 
 
 def _flow_runner(p: FlowParams, shape, chunk: int, temporal_block: bool,

@@ -496,10 +496,3 @@ def test_profile_dir_writes_a_trace(frames, tmp_path):
     trace = json.loads((prof / "trace.json").read_text())
     assert trace["traceEvents"]
 
-
-def test_time_fn():
-    from tpuflow3d_torch.utils.profiling import time_fn
-
-    calls = []
-    assert time_fn(lambda x: calls.append(x), 1, warmup=2, iters=3) >= 0.0
-    assert calls == [1] * 5

@@ -341,6 +341,30 @@ def test_entry_counts_replayed_launches_only(recorded, monkeypatch):
     kernels.reset_launches()
 
 
+@pytest.mark.parametrize("name", ["ladder256", "accurate"])
+def test_entry_counts_replays_by_key(recorded, monkeypatch, name):
+    """``replays_by_key`` (reported by ``entries()``) splits ``replays`` by
+    segment and level: one ``("body", level)`` replay a sweep (V-cycle)
+    the early stop let run, one ``("warp", level)`` a warp iteration."""
+    monkeypatch.setattr(torch.cuda, "memory_snapshot", lambda: [])
+    p = PATHS[name]
+    i0, i1 = _pair((16, 16, 16))
+    _entry_solve(p, i0, i1)
+    (info,) = graphs.entries().values()
+    by_key = info["replays_by_key"]
+    assert sum(by_key.values()) == info["replays"]
+    levels = range(len(p.level_shapes((16, 16, 16))))
+    if p.residual_tol > 0.0:
+        for li in levels:
+            assert by_key[("pre", li)] == by_key[("post", li)] == p.warps
+            assert p.warps <= by_key[("body", li)] <= (
+                p.warps * p.inner_iterations * p.mg_cycles)
+    else:
+        assert {k: v for k, v in by_key.items() if k[0] == "warp"} == {
+            ("warp", li): p.warps for li in levels}
+    assert by_key[("prep",)] == 1
+
+
 def test_entry_refuses_other_tensors(recorded):
     p = PATHS["ladder256"]
     i0, i1 = _pair((16, 16, 16))

@@ -843,6 +843,31 @@ def test_graphed_flow_is_the_eager_flow(dev, name):
     assert graphs.entries() == {}
 
 
+def test_replays_by_key_counts_the_benchmarks_v_cycles(dev):
+    """The entry's own ``replays_by_key`` holds what the benchmark counts
+    by wrapping ``graphs._Held._replay`` (``flowbench.system.
+    replay_counts``): one ``("body", level)`` replay a V-cycle the early
+    stop let run, for a 64^3 ``accurate`` call."""
+    from flowbench.system import replay_counts
+    from tpuflow3d_torch import graphs
+    p = PRESETS["accurate"]
+    i0, i1, _ = syn.make_pair((64, 64, 64), syn.translation((1.5, -1.0, 0.75)))
+    graphs.clear()
+    compute_flow(i0, i1, p, device=dev)
+    (info,) = graphs.entries().values()
+    first = info["replays_by_key"]
+    counted = {}
+    with replay_counts(counted):
+        compute_flow(i0, i1, p, device=dev)
+    (info,) = graphs.entries().values()
+    second = {k: v - first.get(k, 0) for k, v in info["replays_by_key"].items()}
+    bodies = {k: v for k, v in counted.items() if k[0] == "body"}
+    assert bodies and all(second[k] == v for k, v in bodies.items())
+    assert second == counted
+    assert sum(info["replays_by_key"].values()) == info["replays"]
+    graphs.clear()
+
+
 def test_a_capture_that_fails_raises(dev, monkeypatch):
     """An operation a CUDA graph cannot capture (a host read), planted in a
     segment, raises: nothing runs eagerly in its place, the entry is

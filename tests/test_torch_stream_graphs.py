@@ -402,6 +402,26 @@ def test_entry_replays_the_direct_flow(monkeypatch, recorded, name, kw):
                                                    device="cpu")
 
 
+def test_entry_counts_replays_by_phase(monkeypatch, recorded):
+    """A streamed entry's ``replays_by_key`` names each graph by its
+    phase and slab shapes, and sums to ``replays``."""
+    monkeypatch.setattr(torch.cuda, "memory_snapshot", lambda: [])
+    p = PARAMS["ladder"].replace(inner_iterations=2)
+    i0, i1, _ = syn.make_pair((16, 16, 16), syn.translation(SHIFT), seed=0)
+    _direct(p, i0, i1)
+    (info,) = graphs.entries().values()
+    by_key = info["replays_by_key"]
+    assert sum(by_key.values()) == info["replays"]
+    assert len(by_key) == info["graphs"]
+    names = {name for name, _ in by_key}
+    assert names == {"smooth", "resample", "warp_deriv", "terms",
+                     "sor_trapezoid", "median"}
+    # Two levels of 16 and 8 planes, chunks of 8: the median runs 2 + 1
+    # slabs a warp.
+    assert sum(v for (name, _), v in by_key.items()
+               if name == "median") == 3 * p.warps
+
+
 def test_entry_counts_replayed_launches_only(monkeypatch, recorded):
     real = pw._ph_median
 
