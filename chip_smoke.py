@@ -43,6 +43,13 @@
    out). The fused sweep and two single-colour launches are timed in turns.
    Also times pack_color and unpack_colors, the overhead of the packed layout
    per inner iteration.
+   ``[terms]``: K8, the rank-1 nonlinearity update, bitwise against
+   ``solver.rank1_terms`` (du zero and random) on every level shape of
+   ``ladder512`` at 512^3 and of ``accurate`` at 256^3 and on shapes
+   smaller than its 32 x 16 tile and 32-plane chunk, each timed beside
+   its bound (60 B/voxel) and the plain version; then a ``ladder512``
+   pair at 512^3 in core must launch it exactly 54 times (6 levels x 3
+   warps x 3 inner iterations), its warm wall printed.
 4. Drives ``tpuflow3d_torch.compute_flow`` with ``PRESETS["ladder256"]`` on
    a 256^3 blob translation, once through the kernels (backend "auto") and
    once plain, each replayed from the CUDA graphs of ``graphs.py`` (the
@@ -195,7 +202,7 @@ FLOW_ATOL, FLOW_RTOL = 2e-4, 1e-3
 TOLS = {"sor_halfsweep": (0.0, 0.0), "warp_grad": (1e-5, 1e-5),
         "median3": (0.0, 0.0), "warp_grad_tricubic": (1e-5, 1e-5),
         "sor_gc": (0.0, 0.0), "sor_packed": (5e-5, 1e-5),
-        "sor_gc_packed": (5e-5, 1e-5)}
+        "sor_gc_packed": (5e-5, 1e-5), "terms": (0.0, 0.0)}
 # kernel -> (the source that holds its device code, the TPU kernel it
 # replaces, the C entry's source where another file holds the body).
 SOURCES = {
@@ -215,6 +222,8 @@ SOURCES = {
                    "src/tpuflow3d/pallas/sor_packed.py:164"),
     "sor_gc_packed": ("src/tpuflow3d_torch/csrc/sor_gc_packed.cu",
                       "src/tpuflow3d/pallas/sor_gc_packed.py:102"),
+    "terms": ("src/tpuflow3d_torch/csrc/terms.cu",
+              "src/tpuflow3d/solver.py:compute_terms (XLA, no Pallas kernel)"),
 }
 # kernel -> a pattern that its device functions' names match in a profiler
 # trace. K1 and K6 share the templates of csrc/sor_sweep.cuh (colour_kernel,
@@ -227,34 +236,37 @@ KERNEL_SYMBOLS = {
     "warp_grad_tricubic": r"::warp_grad_kernel<(true|\(bool\)1)>",
     "sor_gc": r"tf3d_sweep::\w+_kernel<[\w ]+, *(true|\(bool\)1)",
     "sor_packed": r"::sor_halfsweep_packed_kernel<",
-    "sor_gc_packed": r"::sor_halfsweep_gc_packed_kernel<"}
+    "sor_gc_packed": r"::sor_halfsweep_gc_packed_kernel<",
+    "terms": r"tf3d_terms::"}
 # path -> (preset, changes, the kernels it must launch, EPE limit). A kernel
 # maps to the launch count the path must show exactly, or to None for any
 # count above 0; 900 is 5 levels (all of even W) x 3 warps x 3 inner
 # iterations x 20 sweeps, one fused red+black launch each, and 1800 the same
 # x 2 colours. K6 runs the 20 sweeps of an inner iteration on the coarsest
 # level (16^3 = 4096 voxels) in one launch of one block: 4 x 180 + 9 = 729.
+# K8 makes each nonlinearity update of the rank-1 system on a whole volume:
+# levels x warps x inner iterations, 45 for ladder256 and 120 for accurate.
 # The JAX package's TPU records:
 # ladder256 0.0179 on its bench input; accurate 3.4e-4 and its accuracy
 # gate 1e-3.
 PATHS = {
     "ladder256": ("ladder256", {},
-                  {"sor_halfsweep": 900, "warp_grad": None, "median3": None},
-                  0.03),
+                  {"sor_halfsweep": 900, "warp_grad": None, "median3": None,
+                   "terms": 45}, 0.03),
     "accurate": ("accurate", {},
                  {"warp_grad_tricubic": None, "sor_gc": None,
-                  "median3": None}, 1e-3),
+                  "median3": None, "terms": 120}, 1e-3),
     "gamma": ("ladder256", {"gamma": 1.0},
               {"warp_grad": None, "sor_gc": 729, "median3": None}, 0.03),
     "packed": ("ladder256", {"sweep_layout": "packed"},
-               {"sor_packed": 1800, "warp_grad": None, "median3": None},
-               0.03),
+               {"sor_packed": 1800, "warp_grad": None, "median3": None,
+                "terms": 45}, 0.03),
     "packed_gamma": ("ladder256", {"sweep_layout": "packed", "gamma": 1.0},
                      {"sor_gc_packed": 1800, "warp_grad": None,
                       "median3": None}, 0.03),
     "accurate-bf16": ("accurate-bf16", {},
                       {"warp_grad_tricubic": None, "sor_gc": None,
-                       "median3": None}, 1e-3),
+                       "median3": None, "terms": 120}, 1e-3),
 }
 # Turns of (flat, packed, packed, flat) in the end-to-end layout comparison.
 LAYOUT_TURNS = 3
@@ -720,6 +732,119 @@ def stream_graphs_phase(torch, i0, i1, summary) -> None:
                 f"{fmt(med[kind])} s")
         graphs.clear()
         torch.cuda.empty_cache()
+
+
+# [terms]: the shapes K8 is held at beside the level shapes of ladder512 at
+# 512^3 and accurate at 256^3: a voxel, depths below the 32-plane chunk,
+# heights and widths below and across the 16 x 32 tile, odd sizes.
+TERMS_SHAPES = [(1, 1, 1), (2, 3, 5), (17, 9, 33), (5, 37, 70),
+                (40, 19, 33), (32, 32, 32)]
+
+
+def bits(torch, x):
+    """x's float32 bit patterns (torch.equal takes -0 for +0)."""
+    return x.contiguous().view(torch.int32)
+
+
+def terms_phase(torch, dev, summary) -> None:
+    """[terms]: K8 bitwise against its plain version at every shape of
+    TERMS_SHAPES and the two presets' levels, each timed (CUDA-event
+    medians of 10) beside its bound; then its launches in a ladder512 pair
+    at 512^3."""
+    from tpuflow3d_torch import PRESETS, compute_flow, graphs, kernels
+    from tpuflow3d_torch.kernels.terms import terms_rank1
+    from tpuflow3d_torch.solver import rank1_terms
+    from tpuflow3d_torch.utils import roofline
+    rates, sheet_bw, probed_bw = (ROOFLINE[k] for k in ("rates", "sheet_bw",
+                                                        "probed_bw"))
+    p = PRESETS["ladder512"]
+    shapes = list(dict.fromkeys(
+        TERMS_SHAPES + p.level_shapes((512,) * 3)
+        + PRESETS["accurate"].level_shapes(SHAPE)))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    entry = summary.setdefault("terms", {"max_abs_err": 0.0})
+    by_shape = entry.setdefault("by_shape", {})
+
+    def rnd(shape, scale):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    for shape in shapes:
+        n_vox = shape[0] * shape[1] * shape[2]
+        g, it, flow = rnd((3, *shape), 0.1), rnd(shape, 0.05), rnd(
+            (3, *shape), 0.5)
+        for du in (torch.zeros_like(flow), rnd((3, *shape), 0.05)):
+            kern = lambda: terms_rank1(g, it, flow, du, p)
+            plain = lambda: rank1_terms(g, it, flow, du, p)
+            before = kernels.LAUNCHES["terms"]
+            got, ref = kern(), plain()
+            torch.cuda.synchronize()
+            if kernels.LAUNCHES["terms"] != before + 1:
+                raise AssertionError(f"terms {shape}: "
+                                     f"{kernels.LAUNCHES['terms'] - before}"
+                                     f" launches, expected 1")
+            for name, a, b in zip(("c", "psi_s", "psi_d"), got, ref):
+                if not torch.equal(bits(torch, a), bits(torch, b)):
+                    bad = int((bits(torch, a) != bits(torch, b)).sum())
+                    raise AssertionError(
+                        f"terms {shape}: {name} differs from the plain "
+                        f"version in {bad} values (max |diff| "
+                        f"{float((a - b).abs().max()):.3e})")
+        del got, ref
+        nbytes = roofline.TERMS_BYTES_PER_VOXEL * n_vox
+        ms, plain_ms = cuda_ms(torch, kern), cuda_ms(torch, plain)
+        b = roofline.bound("terms", nbytes, n_vox, bw=sheet_bw, rates=rates)
+        b_probed = roofline.bound("terms", nbytes, n_vox, bw=probed_bw,
+                                  rates=rates)["bound_ms"]
+        log(f"[terms] {shape}: bitwise the plain version (du zero and "
+            f"random); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{b['bound_ms']:.4f} ms by {b['bound_by']} "
+            f"({roofline.TERMS_BYTES_PER_VOXEL} B/voxel: "
+            f"{100 * b['bound_ms'] / ms:.1f}% of it); at the probed rate "
+            f"{b_probed:.4f} ms")
+        by_shape["x".join(map(str, shape))] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
+            "bound_probed_ms": b_probed}
+        if shape == SHAPE:
+            for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                             ("bound_ms", b["bound_ms"]),
+                             ("bound_by", b["bound_by"]),
+                             ("bound_bytes_ms", b["bound_bytes_ms"]),
+                             ("bound_operations_ms",
+                              b["bound_operations_ms"]),
+                             ("bound_probed_ms", b_probed),
+                             ("probed_bytes_per_s", probed_bw)):
+                entry[key] = val
+        del g, it, flow, du
+    torch.cuda.empty_cache()
+
+    # A ladder512 pair at 512^3 in core: one launch per nonlinearity update.
+    shape = (512, 512, 512)
+    base = torch.nn.functional.interpolate(
+        rnd((1, 1, 64, 64, 64), 1.0), size=shape, mode="trilinear",
+        align_corners=False)[0, 0]
+    i0, i1 = base, torch.roll(base, shifts=1, dims=2)
+    del base
+    kernels.reset_launches()
+    graphs.clear()
+    compute_flow(i0, i1, p, device=dev)
+    n = kernels.LAUNCHES["terms"]
+    expected = p.warps * p.inner_iterations * len(p.level_shapes(shape))
+    t0 = time.perf_counter()
+    compute_flow(i0, i1, p, device=dev)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    log(f"[terms] ladder512 at 512^3 in core: {n} K8 launches (expected "
+        f"{expected}), warm graphed call {wall:.3f} s "
+        f"({shape[0] ** 3 / wall:.6g} voxels/s)")
+    if n != expected:
+        raise AssertionError(f"ladder512: {n} K8 launches, expected "
+                             f"{expected}")
+    entry["launches_ladder512_512"] = n
+    entry["ladder512_512_warm_s"] = wall
+    del i0, i1
+    graphs.clear()
+    torch.cuda.empty_cache()
 
 
 def check_launches(label: str, launches: dict, expected: dict) -> None:
@@ -1507,7 +1632,8 @@ def cli_phase(torch, i0, i1, true, mask, launches, summary) -> None:
             "--stats", "--report-fit", "--timings", "--log-json", log_json,
             "--out", out])
         check_launches("cli", launches["cli"], {
-            "sor_halfsweep": 1800, "warp_grad": 30, "median3": 30})
+            "sor_halfsweep": 1800, "warp_grad": 30, "median3": 30,
+            "terms": 90})
         check_incore_model("cli", SHAPE, PRESETS["ladder256"], peak, base,
                            summary)
         ev = events(log_json)
@@ -1667,7 +1793,8 @@ def cli_phase(torch, i0, i1, true, mask, launches, summary) -> None:
             "--frame0", frames[0], "--frame1", frames[1], "--preset",
             "ladder256", "--check-consistency", "--out", out_c])
         check_launches("cli:consistency", launches["cli:consistency"], {
-            "sor_halfsweep": 1800, "warp_grad": 30, "median3": 30})
+            "sor_halfsweep": 1800, "warp_grad": 30, "median3": 30,
+            "terms": 90})
         err = vio.read_raw(f"{out_c}consistency.raw")
         med = float(np.median(err[8:-8, 8:-8, 8:-8]))
         log(f"{tag} {elapsed()} --check-consistency {wall:.2f} s: interior "
@@ -2488,7 +2615,9 @@ def main() -> None:
 
     for terms_dtype in ("float32", "bfloat16"):
         tag = "" if terms_dtype == "float32" else "/bf16"
-        pt = p.replace(terms_dtype=terms_dtype)
+        # The plain terms: the plain sweeps compared below read the weights,
+        # which K8's route leaves out.
+        pt = p.replace(terms_dtype=terms_dtype, backend="plain")
         terms = compute_terms(g, it, flow, du, pt, ctx)
         gterms = compute_terms(g, it, flow, du, pt.replace(gamma=1.0), ctx,
                                gc=gc)
@@ -2643,6 +2772,9 @@ def main() -> None:
     del x, xq
     del pyr0, pyr1, v0, v1
     torch.cuda.empty_cache()
+
+    # 3b. K8, the rank-1 nonlinearity update.
+    terms_phase(torch, dev, summary)
 
     # 4-9. The main paths, each through the kernels, then plain.
     mask = syn.gradient_mask(i0, 0.75) & syn.interior_mask(SHAPE, 4)

@@ -6,7 +6,8 @@ bfloat16) and recompute the neighbour weights and the Sherman-Morrison
 factors per voxel from the stored g, so the precomputed
 ``SolveTerms.w/sw_inv/smt`` are read only by the plain version,
 ``solver.sor_halfsweep``, which the wrappers run for CPU tensors (it too
-remakes ``smt`` where g is stored in bfloat16).
+remakes ``smt`` where g is stored in bfloat16; ``with_weights`` remakes
+all three where compute_terms' K8 route left them out).
 
 - ``sor_sweeps`` returns the iterate after n full sweeps (red, then black).
   On a whole volume each sweep is one launch of the fused kernel; a slab
@@ -28,14 +29,30 @@ import torch
 
 from tpuflow3d_torch import kernels
 from tpuflow3d_torch.grid import HaloCtx
-from tpuflow3d_torch.solver import SolveTerms, parity_mask, sor_halfsweep as _plain
+from tpuflow3d_torch.solver import (SolveTerms, _weight_block, parity_mask,
+                                    sor_halfsweep as _plain)
 
 RED, BLACK, RED_THEN_BLACK = 0, 1, 2
 
 
+def with_weights(t: SolveTerms, alpha: float, ctx: HaloCtx) -> SolveTerms:
+    """t with the weights, sw_inv and smt that the plain version reads,
+    remade from (g, psi_s, psi_d) by compute_terms' arithmetic where its
+    K8 route left them out (as the kernels remake them)."""
+    if t.w is not None:
+        return t
+    w, sw = _weight_block(t.psi_s, alpha, ctx)
+    sw_inv = 1.0 / sw
+    g = t.g.float()
+    smt = t.psi_d * sw_inv / (sw + t.psi_d * (g * g).sum(0))
+    return t._replace(w=w, sw_inv=sw_inv, smt=smt)
+
+
 def plain_sweeps(du: torch.Tensor, t: SolveTerms, omega: float, n: int,
-                 ctx: HaloCtx) -> torch.Tensor:
-    """n x (red half-sweep, black half-sweep) of the plain version."""
+                 ctx: HaloCtx, alpha: float | None = None) -> torch.Tensor:
+    """n x (red half-sweep, black half-sweep) of the plain version (terms
+    without weights take ``alpha``)."""
+    t = with_weights(t, alpha, ctx)
     parity = parity_mask(tuple(du.shape[1:]), ctx, du.device)
     for _ in range(n):
         du = _plain(du, t, omega, parity, 0, ctx)
@@ -125,7 +142,8 @@ def sor_halfsweep(du: torch.Tensor, t: SolveTerms, alpha: float, omega: float,
     a CUDA tensor, the plain version for a CPU tensor."""
     if du.device.type == "cpu":
         parity = parity_mask(tuple(du.shape[1:]), ctx, du.device)
-        return _plain(du, t, omega, parity, color, ctx)
+        return _plain(du, with_weights(t, alpha, ctx), omega, parity, color,
+                      ctx)
     require_cuda("sor_halfsweep", du)
     if color not in (RED, BLACK):
         raise ValueError(f"sor_halfsweep: color {color}, expected 0 or 1")
@@ -141,7 +159,7 @@ def sor_sweeps(du: torch.Tensor, t: SolveTerms, alpha: float, omega: float,
     if n < 0:
         raise ValueError(f"sor_sweeps: n = {n}")
     if du.device.type == "cpu":
-        return plain_sweeps(du, t, omega, n, ctx)
+        return plain_sweeps(du, t, omega, n, ctx, alpha)
     require_cuda("sor_sweeps", du)
     if n == 0:
         return du

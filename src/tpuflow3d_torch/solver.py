@@ -59,7 +59,8 @@ class SolveTerms(NamedTuple):
     """Per-nonlinear-iteration constants consumed by the sweeps. K1 reads
     only (c, g, psi_s, psi_d) and K6 only (c, ainv, psi_s); both recompute
     the weights. The plain sweep reads (c, w) and either (g, sw_inv, smt)
-    or ainv."""
+    or ainv. On K8's route (``compute_terms``) w, sw_inv and smt are
+    None."""
     c: torch.Tensor       # (3, D, H, W) constant RHS part
     g: torch.Tensor       # (3, D, H, W) spatial gradient
     w: tuple              # 6 x (D, H, W) neighbour weights z+, z-, y+, y-, x+, x-
@@ -185,19 +186,10 @@ def sweep_terms(c: torch.Tensor, g, psi_s: torch.Tensor, aux: torch.Tensor,
                       smt=smt, psi_s=psi_s, psi_d=aux)
 
 
-def compute_terms(g: torch.Tensor, it: torch.Tensor, flow: torch.Tensor,
-                  du: torch.Tensor, p: FlowParams,
-                  ctx: HaloCtx = HaloCtx(), gc=None) -> SolveTerms:
-    """Nonlinearity update: recompute psi' weights and RHS constants for the
-    current increment estimate.
-
-    ``gc``: (gc_g, gc_it) from ``derivatives.grad_constancy_terms``,
-    required exactly when p.gamma > 0. It adds gamma*psi_g * sum_a h_a
-    h_a^T to the point system, whose exact symmetric inverse is then
-    precomputed (``ainv``) together with the data block (``d6``)."""
-    if (p.gamma > 0.0) != (gc is not None):
-        raise ValueError("gamma > 0 requires grad_constancy_terms (and "
-                         "vice versa)")
+def _rank1_parts(g: torch.Tensor, it: torch.Tensor, flow: torch.Tensor,
+                 du: torch.Tensor, p: FlowParams, ctx: HaloCtx):
+    """compute_terms' arithmetic of the rank-1 system: (c, psi_s, psi_d,
+    the six neighbour weights, their sum)."""
     dtype = g.dtype
     shape = tuple(it.shape)
 
@@ -224,6 +216,55 @@ def compute_terms(g: torch.Tensor, it: torch.Tensor, flow: torch.Tensor,
     for wd, (axis, delta) in zip(w_dirs, _DIRECTIONS):
         nbu = nbu + wd[None] * (_nb(flow, flow_zp, axis, delta) - flow)
     c = -(psi_d * it)[None] * g + nbu
+    return c, psi_s, psi_d, w_dirs, sw
+
+
+def rank1_terms(g: torch.Tensor, it: torch.Tensor, flow: torch.Tensor,
+                du: torch.Tensor, p: FlowParams,
+                ctx: HaloCtx = HaloCtx()):
+    """(c, psi_s, psi_d) of the rank-1 system at du, by compute_terms'
+    arithmetic: the plain version of K8 (``kernels/terms.py``)."""
+    return _rank1_parts(g, it, flow, du, p, ctx)[:3]
+
+
+def terms_on_kernel(g: torch.Tensor, p: FlowParams, ctx: HaloCtx,
+                    gc=None) -> bool:
+    """Whether compute_terms makes (c, psi_s, psi_d) with K8: the rank-1
+    system (gamma = 0) of a whole volume (no window, no Z neighbours) on
+    the kernel route, for the consumers that read only (c, g, psi_s,
+    psi_d): the SOR sweeps (K1, K4) and the multigrid hierarchy. Jacobi
+    sweeps plain, which reads the weights."""
+    return (gc is None and p.solver in ("sor", "multigrid")
+            and not ctx.is_window and ctx.is_whole(g.shape[-3])
+            and use_kernels(p, g))
+
+
+def compute_terms(g: torch.Tensor, it: torch.Tensor, flow: torch.Tensor,
+                  du: torch.Tensor, p: FlowParams,
+                  ctx: HaloCtx = HaloCtx(), gc=None) -> SolveTerms:
+    """Nonlinearity update: recompute psi' weights and RHS constants for the
+    current increment estimate.
+
+    ``gc``: (gc_g, gc_it) from ``derivatives.grad_constancy_terms``,
+    required exactly when p.gamma > 0. It adds gamma*psi_g * sum_a h_a
+    h_a^T to the point system, whose exact symmetric inverse is then
+    precomputed (``ainv``) together with the data block (``d6``).
+
+    Where ``terms_on_kernel`` says so, K8 makes (c, psi_s, psi_d) in one
+    launch and w, sw_inv and smt are None: every consumer there remakes
+    the weights from psi_s."""
+    if (p.gamma > 0.0) != (gc is not None):
+        raise ValueError("gamma > 0 requires grad_constancy_terms (and "
+                         "vice versa)")
+    # Storage-only downcast of the sweep constants c and g, at the end as
+    # in the reference: smt, ainv and d6 are those of the unrounded g.
+    store = getattr(torch, p.terms_dtype)
+    if terms_on_kernel(g, p, ctx, gc):
+        from tpuflow3d_torch.kernels.terms import terms_rank1
+        c, psi_s, psi_d = terms_rank1(g, it, flow, du, p, ctx)
+        return SolveTerms(c=c.to(store), g=g.to(store), w=None, sw_inv=None,
+                          smt=None, psi_s=psi_s, psi_d=psi_d)
+    c, psi_s, psi_d, w_dirs, sw = _rank1_parts(g, it, flow, du, p, ctx)
     sw_inv = 1.0 / sw
     q = psi_d * (g * g).sum(0)
     smt = psi_d * sw_inv / (sw + q)
@@ -246,9 +287,6 @@ def compute_terms(g: torch.Tensor, it: torch.Tensor, flow: torch.Tensor,
                           d_entry(1, 1), d_entry(1, 2), d_entry(2, 2)])
         ainv = _sym3_inverse(d6[0] + sw, d6[1], d6[2],
                              d6[3] + sw, d6[4], d6[5] + sw)
-    # Storage-only downcast of the sweep constants c and g, at the end as
-    # in the reference: smt, ainv and d6 are those of the unrounded g.
-    store = getattr(torch, p.terms_dtype)
     return SolveTerms(c=c.to(store), g=g.to(store), w=w_dirs,
                       sw_inv=sw_inv, smt=smt, psi_s=psi_s, psi_d=psi_d,
                       ainv=ainv, d6=d6)

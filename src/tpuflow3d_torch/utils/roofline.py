@@ -62,7 +62,7 @@ FP32_FLOPS = {
 OPS = {"sor_halfsweep": (86, "fp32"), "sor_packed": (86, "fp32"),
        "sor_gc": (72, "fp32"), "sor_gc_packed": (72, "fp32"),
        "warp_grad": (40, "fp32"), "warp_grad_tricubic": (265, "fp32"),
-       "median3": (39, "minmax")}
+       "median3": (39, "minmax"), "terms": (130, "fp32")}
 # What csrc/median3.cu's selection network executes per output value: min
 # and max instructions of the separable network (sorted rows, merged 3x3
 # blocks shared by two rows and three planes, one merge of two planes shared
@@ -82,6 +82,11 @@ SWEEP_FLOPS_PER_VOXEL = {"sor_flat": 43.0, "sor": 43.0, "sor_bf16": 43.0,
 # median (K3): the three components read and written.
 WARP_BYTES_PER_VOXEL = {False: 4 + 12 + 4 + 16, True: 4 + 12 + 4 + 20}
 MEDIAN3_BYTES_PER_VOXEL = 24
+# The rank-1 nonlinearity update (K8): g (12), it, flow (12) and du (12)
+# read, c (12), psi_s and psi_d written. Its 130 operations a voxel: psi_d
+# 9, flow + du 3, psi_s 38 (three central differences of three components
+# squared and summed), the six weights 18, the neighbour sums 54, c 8.
+TERMS_BYTES_PER_VOXEL = 12 + 4 + 12 + 12 + 12 + 4 + 4
 # csrc/probe.cu's min/max loop: compare-exchanges an iteration, x 2.
 MINMAX_PER_ITER = 30
 # The default footprint of the bandwidth probe, a side: 20x the H100's

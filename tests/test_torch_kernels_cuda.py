@@ -1,9 +1,9 @@
 """The CUDA kernels (K1 SOR sweeps, single-colour and fused red+black,
 K2/K5 fused trilinear/tricubic warp + derivatives, K3 median, K6
 general-SPD SOR sweeps with the one-block form of the small multigrid
-levels, K4 and K7 the colour-packed half-sweeps, and the bfloat16-terms
-instantiations of the four sweep kernels) against their plain PyTorch
-versions, on the card, and
+levels, K4 and K7 the colour-packed half-sweeps, the bfloat16-terms
+instantiations of the four sweep kernels, and K8 the rank-1 nonlinearity
+update) against their plain PyTorch versions, on the card, and
 compute_flow through the kernels against plain on the ladder, ``accurate``,
 gamma, packed, bfloat16 and order-4 paths. The streamed mode's window forms:
 K2/K5 and single-colour K1/K6 on window slabs (z0 below, at and inside the
@@ -72,9 +72,12 @@ def _terms(shape, dev, seed=0, gamma=0.0, terms_dtype="float32",
     gc = grad_constancy_terms(i0, i1, ctx, g=g) if gamma > 0 else None
     flow = _t(rng.normal(size=(3, *shape)) * 0.1, dev)
     du = _t(rng.normal(size=(3, *shape)) * 0.05, dev)
+    # The plain terms: the plain sweeps these tests compare with read the
+    # weights, which K8's route leaves out.
     return du, compute_terms(g, it, flow, du,
                              FlowParams(alpha=ALPHA, gamma=gamma,
-                                        terms_dtype=terms_dtype), ctx, gc=gc)
+                                        terms_dtype=terms_dtype,
+                                        backend="plain"), ctx, gc=gc)
 
 
 @pytest.mark.parametrize("color", [0, 1])
@@ -530,13 +533,81 @@ def test_kernels_reject_bad_inputs(dev):
         k_sor_gc(du, tg, al3, OMEGA, 3)
 
 
+TERMS_SHAPES = [(1, 1, 1), (2, 3, 5), (17, 9, 33), (5, 37, 70),
+                (40, 19, 33), (64, 64, 64)]
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("penalizer", ["charbonnier", "quadratic"])
+@pytest.mark.parametrize("du_zero", [True, False])
+@pytest.mark.parametrize("shape", TERMS_SHAPES)
+def test_terms_kernel_is_bitwise_its_plain_version(dev, shape, du_zero,
+                                                   penalizer):
+    from tpuflow3d_torch.kernels.terms import terms_rank1
+    from tpuflow3d_torch.solver import rank1_terms
+    rng = np.random.default_rng(sum(shape))
+    g = _t(rng.normal(size=(3, *shape)) * 0.1, dev)
+    it = _t(rng.normal(size=shape) * 0.05, dev)
+    flow = _t(rng.normal(size=(3, *shape)) * 0.5, dev)
+    du = (torch.zeros_like(flow) if du_zero
+          else _t(rng.normal(size=(3, *shape)) * 0.05, dev))
+    p = FlowParams(alpha=ALPHA, penalizer_data=penalizer,
+                   penalizer_smooth=penalizer)
+    kernels.reset_launches()
+    got = terms_rank1(g, it, flow, du, p)
+    ref = rank1_terms(g, it, flow, du, p)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["terms"] == 1
+    for a, b in zip(got, ref):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+def test_terms_kernel_refuses_what_it_does_not_take(dev):
+    from tpuflow3d_torch.kernels.terms import terms_rank1
+    shape = (6, 8, 8)
+    g = torch.zeros((3, *shape), device=dev)
+    it = torch.zeros(shape, device=dev)
+    p = FlowParams()
+    with pytest.raises(ValueError, match="whole volume"):
+        terms_rank1(g, it, g, g, p, HaloCtx(window_z0=0, window_d_global=6))
+    with pytest.raises(ValueError, match="not contiguous"):
+        terms_rank1(g.transpose(2, 3), it, g, g, p)
+    with pytest.raises(TypeError, match="float32"):
+        terms_rank1(g.double(), it, g, g, p)
+
+
+def test_compute_terms_takes_the_kernel_on_a_whole_volume(dev):
+    """On the card compute_terms makes (c, psi_s, psi_d) with K8 on a whole
+    volume (no weights kept), bitwise the plain route's, and stays plain
+    under a window."""
+    g, it = (_t(np.random.default_rng(2).normal(size=s), dev)
+             for s in ((3, 9, 20, 24), (9, 20, 24)))
+    flow, du = g * 3.0, g * 0.25
+    p = FlowParams(alpha=ALPHA)
+    kernels.reset_launches()
+    t = compute_terms(g, it, flow, du, p)
+    ref = compute_terms(g, it, flow, du, p.replace(backend="plain"))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["terms"] == 1
+    assert t.w is None and t.sw_inv is None and t.smt is None
+    assert ref.w is not None
+    for f in ("c", "g", "psi_s", "psi_d"):
+        assert torch.equal(_bits(getattr(t, f)), _bits(getattr(ref, f)))
+    window = compute_terms(g, it, flow, du, p,
+                           HaloCtx(window_z0=0, window_d_global=9))
+    assert window.w is not None and kernels.LAUNCHES["terms"] == 1
+
+
 # name -> (params at 32^3, the kernels its path must launch); every other
 # counter must stay at 0.
 PATHS = {
     "ladder": (FlowParams(levels=2, warps=3, inner_iterations=3, sweeps=20),
-               {"sor_halfsweep", "warp_grad", "median3"}),
+               {"sor_halfsweep", "warp_grad", "median3", "terms"}),
     "accurate": (PRESETS["accurate"].replace(levels=2, warps=3),
-                 {"warp_grad_tricubic", "sor_gc", "median3"}),
+                 {"warp_grad_tricubic", "sor_gc", "median3", "terms"}),
     "accurate_gamma": (PRESETS["accurate"].replace(levels=2, warps=3,
                                                    gamma=1.0),
                        {"warp_grad_tricubic", "sor_gc", "median3"}),
@@ -545,25 +616,25 @@ PATHS = {
               {"warp_grad", "sor_gc", "median3"}),
     "packed": (FlowParams(levels=2, warps=3, inner_iterations=3, sweeps=20,
                           sweep_layout="packed"),
-               {"sor_packed", "warp_grad", "median3"}),
+               {"sor_packed", "warp_grad", "median3", "terms"}),
     "packed_early_stop": (FlowParams(levels=2, warps=3, inner_iterations=3,
                                      sweeps=20, sweep_layout="packed",
                                      residual_tol=1e-4),
-                          {"sor_packed", "warp_grad", "median3"}),
+                          {"sor_packed", "warp_grad", "median3", "terms"}),
     "packed_gamma_bf16": (FlowParams(levels=2, warps=3, inner_iterations=3,
                                      sweeps=20, sweep_layout="packed",
                                      gamma=1.0, terms_dtype="bfloat16"),
                           {"sor_gc_packed", "warp_grad", "median3"}),
     "ladder_bf16": (FlowParams(levels=2, warps=3, inner_iterations=3,
                                sweeps=20, terms_dtype="bfloat16"),
-                    {"sor_halfsweep", "warp_grad", "median3"}),
+                    {"sor_halfsweep", "warp_grad", "median3", "terms"}),
     "accurate_bf16": (PRESETS["accurate-bf16"].replace(levels=2, warps=3),
-                      {"warp_grad_tricubic", "sor_gc", "median3"}),
+                      {"warp_grad_tricubic", "sor_gc", "median3", "terms"}),
     # Order 4 warps and differentiates in plain PyTorch (the fused kernels
     # compute 2-point derivatives); the sweeps and the median run kernels.
     "order4": (FlowParams(levels=2, warps=3, inner_iterations=3, sweeps=20,
                           deriv_order=4),
-               {"sor_halfsweep", "median3"}),
+               {"sor_halfsweep", "median3", "terms"}),
 }
 
 
