@@ -8,8 +8,10 @@ by fixed-point iteration, so the pair (I0 = f(x), I1 = f(psi(x))) has the
 exact forward flow s. The mode parameters come from numpy's generator
 seeded as the port's copy seeds it (64 modes: a few hundred numbers on the
 host); every volume-sized array is evaluated on the device in float64, in
-slabs of Z planes, and the volumes are returned as float32. Nothing here
-imports the program.
+slabs of Z planes, and the volumes are returned as float32. A traffic may
+add a brightness change to I1 (``make_pair``'s ``intensity``), worked out
+on the host from the returned float32 volume. Nothing here imports the
+program.
 """
 
 from __future__ import annotations
@@ -98,15 +100,25 @@ def _slabs(shape):
 
 
 def make_pair(shape, seed, texture: dict, deformation: dict,
-              device) -> tuple[np.ndarray, np.ndarray]:
+              device, intensity: dict | None = None
+              ) -> tuple[np.ndarray, np.ndarray]:
     """(i0, i1) as float32 host arrays: the FourierField of ``seed`` at the
     voxel centres and at the inverse-deformed ones. ``texture``: modes,
-    kmin, kmax; ``deformation``: amplitude, periods (the traffic file's
-    groups)."""
+    kmin, kmax; ``deformation``: amplitude, periods; ``intensity``, a
+    brightness change of the moving volume i1 (the traffic file's
+    groups): None for none, or ``{"kind": "offset", "std_fraction": k}``,
+    which adds k * std(i1), the additive offset of VALIDATION.md's
+    gradient-constancy study. The std is i1's population std in float64
+    over the whole volume, on the host, and the offset, rounded to
+    float32, is added to i1 in place: the pair does not depend on the
+    device. The true flow is unchanged."""
     if texture.get("kind", "fourier") != "fourier" or \
             deformation.get("kind", "sinusoid") != "sinusoid":
         raise ValueError("the generator makes fourier textures under a "
                          "sinusoid deformation")
+    if intensity is not None and intensity.get("kind") != "offset":
+        raise ValueError(f"unknown intensity change {intensity!r}: the "
+                         f"generator adds an offset (kind \"offset\")")
     modes = fourier_modes(seed, texture["modes"], texture["kmin"],
                           texture["kmax"])
     fn = sinusoid(shape, deformation["amplitude"], deformation["periods"])
@@ -116,6 +128,9 @@ def make_pair(shape, seed, texture: dict, deformation: dict,
         pts = _grid(shape, z0, z1, device)
         i0[z0:z1] = field(modes, pts).float().cpu().numpy()
         i1[z0:z1] = field(modes, invert_flow(fn, pts)).float().cpu().numpy()
+    if intensity is not None:
+        i1 += np.float32(intensity["std_fraction"]
+                         * float(np.std(i1, dtype=np.float64)))
     return i0, i1
 
 

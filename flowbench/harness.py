@@ -6,17 +6,18 @@ process.
 
 - Set-up (``setup_s``, from the start of the process): torch and the
   program imported, the kernels built or loaded, the traffic's distinct
-  pairs made on the device (the same for every seed; the seed orders them)
-  and copied to host numpy, and one call that captures the program's
-  graphs.
+  pairs made on the device (the same for every seed; the seed orders them;
+  with the traffic's ``intensity`` change on the moving volume) and copied
+  to host numpy, and one call that captures the program's graphs.
 - The window: the distinct pairs solved in turn, one after another, in
   whole rounds, until ``--seconds`` have passed at the end of a round.
   Each call takes numpy volumes and returns the flow as a numpy array.
   One returned flow of each distinct pair is kept, drawn from the seed.
 - After the window: the device's peak read, the program's graphs and
   memory dropped, then the EPE of the kept flows and the check: the plain
-  reference solves the pairs drawn for it again from the same volumes,
-  and the kept flow is compared with its flow.
+  reference that the cell's configuration names (``spec.Cell.reference``,
+  ``reference/<name>.py``) solves the pairs drawn for it again from the
+  same volumes, and the kept flow is compared with its flow.
 """
 
 from __future__ import annotations
@@ -31,7 +32,6 @@ import numpy as np
 import torch
 
 from flowbench import devtrace, gen, spec
-from flowbench.reference import solve as reference
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "tpuflow3d")
 
@@ -79,8 +79,8 @@ class Bench:
             params["terms_dtype"] = terms_dtype
         self.system = System(params, cell.traffic, device)
         self.tr = cell.traffic
-        self.shapes = reference.Params.from_dict(cell.params).level_shapes(
-            cell.shape)
+        self.shapes = cell.reference.Params.from_dict(
+            cell.params).level_shapes(cell.shape)
 
     def make_pairs(self, seed: int, fields=None) -> list:
         """The traffic's distinct pairs, made from its ``field_seeds`` (or
@@ -89,7 +89,8 @@ class Bench:
         fields = self.tr["field_seeds"] if fields is None else fields
         order = np.random.default_rng([seed, 0]).permutation(len(fields))
         return [gen.make_pair(self.cell.shape, fields[j], self.tr["texture"],
-                              self.tr["deformation"], self.device)
+                              self.tr["deformation"], self.device,
+                              self.tr.get("intensity"))
                 for j in order.tolist()]
 
     def window(self, pairs, seconds: float, seed: int, trace: bool = False):
@@ -156,7 +157,7 @@ class Bench:
             for (i0, _), flow in zip(pairs, kept)]))
 
     def check(self, pairs, kept, seed: int, limits: dict) -> tuple:
-        """Solve the pairs drawn from the seed with the reference and
+        """Solve the pairs drawn from the seed with the cell's reference and
         compare each kept flow with its flow: the widest and the mean
         |difference| over every voxel and component (float64). Returns
         (the largest of each over the pairs, with the pairs drawn; how many
@@ -164,6 +165,7 @@ class Bench:
         rng = np.random.default_rng([seed, 2])
         drawn = sorted(rng.choice(len(pairs), self.tr["check_pairs"],
                                   replace=False).tolist())
+        reference = self.cell.reference
         p = reference.Params.from_dict(self.cell.params)
         chunk = (self.tr["chunk_z"] if self.system.mode == "stream"
                  else None)

@@ -6,7 +6,8 @@ For each seed, as a run makes them but with volumes of the seed's own
 (the textures drawn from it): the cell's pairs, one capturing
 call, a short window of the timed path (one round: each distinct pair
 solved once), the program's graphs dropped, and the check against the
-plain reference. Prints one JSON line per seed with the compared numbers. With
+plain reference its configuration names (``spec.Cell.reference``).
+Prints one JSON line per seed with the compared numbers. With
 ``--control`` the program runs with its sweep constants stored in bfloat16
 (``terms_dtype``), the nearest precision below the configuration's
 float32: a limit must fail it. Not run by the benchmark's own runs.

@@ -1,9 +1,17 @@
 """What a cell is made of, found by name: ``BENCHMARK.json``'s workload,
-its configuration (``configs/<name>.json``), its traffic mix
+its configuration (``configs/<name>.json``), the plain reference that
+configuration names (``reference/<name>.py``, ``"reference"`` in the
+configuration's file, ``solve`` where it names none), its traffic mix
 (``traffic/<name>.json``), the limits its check holds it to
 (``limits/<workload>.json``) and its per-layer metrics
 (``metrics/<name>.py``). Adding any of them takes a new file and a
 ``BENCHMARK.json`` entry, never an edit here.
+
+A reference module gives ``Params.from_dict(settings)``, an object with
+``level_shapes(shape)``, and ``solve(i0, i1, p, stream_chunk)``, the
+(3, D, H, W) float32 flow of a pair of (D, H, W) tensors on their device
+(``stream_chunk`` None in core, else the streamed mode's chunk); it raises
+on settings it does not compute.
 """
 
 from __future__ import annotations
@@ -11,10 +19,13 @@ from __future__ import annotations
 import importlib.util
 import json
 import math
+import re
+import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
+NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")
 
 
 def _json(path: Path) -> dict:
@@ -34,6 +45,7 @@ class Cell:
         self.workload = found[0]
         self.chips = self.workload["chips"]
         self.config = _json(HERE / "configs" / f"{self.workload['config']}.json")
+        self.reference = reference(self.config.get("reference", "solve"))
         self.traffic = _json(HERE / "traffic" / f"{self.workload['traffic']}.json")
         self.limits = _json(HERE / "limits" / f"{name}.json")
         self.mode = self.traffic["mode"]
@@ -55,12 +67,30 @@ class Cell:
         path = HERE / "metrics" / f"{metric}.py"
         if not path.exists():
             path = HERE / "metrics" / f"{base(metric)}.py"
-        spec = importlib.util.spec_from_file_location(
-            f"flowbench_metric_{metric.replace('.', '_').replace('-', '_')}",
-            path)
+        return _load("flowbench_metric", metric, path).read
+
+
+def reference(name: str):
+    """The module ``reference/<name>.py``: a configuration's plain
+    reference. Raises, naming the file, where there is none."""
+    if not NAME.fullmatch(name):
+        raise ValueError(f"reference name {name!r} is not a name")
+    path = HERE / "reference" / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"no reference {name!r}: {path} is missing")
+    return _load("flowbench_reference", name, path)
+
+
+def _load(prefix: str, name: str, path: Path):
+    """The module at ``path``, executed once per process under a name of
+    its own (registered before it runs, as a dataclass in it needs)."""
+    key = f"{prefix}_{name.replace('.', '_').replace('-', '_')}"
+    if key not in sys.modules:
+        spec = importlib.util.spec_from_file_location(key, path)
         mod = importlib.util.module_from_spec(spec)
+        sys.modules[key] = mod
         spec.loader.exec_module(mod)
-        return mod.read
+    return sys.modules[key]
 
 
 def base(metric: str) -> str:
