@@ -54,7 +54,9 @@ A capture that fails raises: nothing runs eagerly in place of a graph.
 
 Launch counts (``kernels.LAUNCHES``): a graph records the launches its
 capture made, each replay adds them, and neither the warm-up nor the
-capture counts, so a graphed solve counts what the eager one does.
+capture counts, so a graphed solve counts what the eager one does. The
+tracer's counters (``utils.profiling.count``) are kept so as well
+(``profiling.counted_apart``, ``add_counts``).
 
 The streamed mode (``piecewise.py``, and the streamed consistency check of
 ``postproc.py``) is the counterpart of the JAX package's jitted slab
@@ -296,6 +298,7 @@ class _Graph(NamedTuple):
     args: list         # the tensors it reads, as captured
     outs: tuple        # its results, the carried ones in their destinations
     launches: dict     # the kernel launches of one replay
+    counts: dict       # the tracer's counts of one replay
     label: tuple       # its key in ``replays_by_key``
     span: str          # the tracer's span around its replays
 
@@ -342,14 +345,16 @@ class _Held:
             self.stream.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(self.stream), \
                     torch.cuda.use_mem_pool(self.pool, self.device):
-                with kernels.counted_apart() as warm_launches:
+                with kernels.counted_apart() as warm_launches, \
+                        profiling.counted_apart():
                     outs = tupled(*args)
             if callable(carry):
                 carry = carry(outs)
             del outs
             self.stats["warmup_launches"] += sum(warm_launches.values())
             t0 = time.perf_counter()
-            with kernels.counted_apart() as launches:
+            with kernels.counted_apart() as launches, \
+                    profiling.counted_apart() as counts:
                 graph, outs = _capture_graph(tupled, args, carry,
                                              self.pool.id, self.stream)
         except BaseException:
@@ -359,7 +364,7 @@ class _Held:
         self.stats["capture_seconds"] += time.perf_counter() - t0
         label = self.label(key)
         g = self.graphs[key] = _Graph(graph, _tensors(args), outs, launches,
-                                      label, _span_name(label[0]))
+                                      counts, label, _span_name(label[0]))
         return g
 
     def _replay(self, key, g: _Graph, args) -> tuple:
@@ -371,6 +376,7 @@ class _Held:
         with profiling.span(g.span):
             g.graph.replay()
         kernels.add_launches(g.launches)
+        profiling.add_counts(g.counts)
         self.stats["replays"] += 1
         by_key = self.stats["replays_by_key"]
         by_key[g.label] = by_key.get(g.label, 0) + 1

@@ -39,6 +39,7 @@ from tpuflow3d_torch.median import median3_op
 from tpuflow3d_torch.params import FlowParams
 from tpuflow3d_torch.pyramid import build_pyramid, smooth, upsample_flow
 from tpuflow3d_torch.solver import parity_mask, solve_increment
+from tpuflow3d_torch.utils import profiling
 from tpuflow3d_torch.utils.profiling import PhaseTimer
 from tpuflow3d_torch.warp import warp_volume
 
@@ -89,9 +90,13 @@ def warp_iteration(i0l, i1l, flow, p: FlowParams, ctx: HaloCtx, parity,
 
 def gc_terms(i0l, i1w, g, p: FlowParams, ctx: HaloCtx):
     """The gradient-constancy terms of the warp with gamma > 0, else
-    None."""
+    None. Traced as ``tf3d.gc.derivs``, its voxels counted in
+    ``gc.derivs_voxels``."""
     if p.gamma > 0.0:
-        return grad_constancy_terms(i0l, i1w, ctx, order=p.deriv_order, g=g)
+        with profiling.span("tf3d.gc.derivs"):
+            profiling.count("gc.derivs_voxels", i0l.numel())
+            return grad_constancy_terms(i0l, i1w, ctx, order=p.deriv_order,
+                                        g=g)
     return None
 
 

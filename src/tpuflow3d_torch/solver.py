@@ -50,6 +50,7 @@ from tpuflow3d_torch.backend import use_kernels
 from tpuflow3d_torch.derivatives import central_diff
 from tpuflow3d_torch.grid import HaloCtx, Z_AXIS, neighbor_slices, replicate_pad
 from tpuflow3d_torch.params import FlowParams
+from tpuflow3d_torch.utils import profiling
 
 _DIRECTIONS = ((Z_AXIS, +1), (Z_AXIS, -1), (-2, +1), (-2, -1),
                (-1, +1), (-1, -1))  # z+, z-, y+, y-, x+, x-
@@ -273,20 +274,23 @@ def compute_terms(g: torch.Tensor, it: torch.Tensor, flow: torch.Tensor,
     if gc is not None:
         # Gradient constancy: one robust penalizer over the summed per-axis
         # derivative residuals r_a = gc_it[a] + gc_g[a].du, weighted by
-        # gamma; A = sw*I + psi_d g g^T + psi_g sum_a h_a h_a^T.
-        gc_g, gc_it = gc
-        r_g = gc_it + (gc_g * du[None]).sum(1)
-        psi_g = float(np.float32(p.gamma)) * _psi_deriv(
-            (r_g * r_g).sum(0), p.penalizer_grad, p.eps_grad)
-        c = c - ((psi_g[None] * gc_it)[:, None] * gc_g).sum(0)
+        # gamma; A = sw*I + psi_d g g^T + psi_g sum_a h_a h_a^T. Traced as
+        # ``tf3d.gc.terms``, its voxels counted in ``gc.terms_voxels``.
+        with profiling.span("tf3d.gc.terms"):
+            profiling.count("gc.terms_voxels", psi_d.numel())
+            gc_g, gc_it = gc
+            r_g = gc_it + (gc_g * du[None]).sum(1)
+            psi_g = float(np.float32(p.gamma)) * _psi_deriv(
+                (r_g * r_g).sum(0), p.penalizer_grad, p.eps_grad)
+            c = c - ((psi_g[None] * gc_it)[:, None] * gc_g).sum(0)
 
-        def d_entry(i, j):
-            return (psi_d * g[i] * g[j]
-                    + psi_g * (gc_g[:, i] * gc_g[:, j]).sum(0))
-        d6 = torch.stack([d_entry(0, 0), d_entry(0, 1), d_entry(0, 2),
-                          d_entry(1, 1), d_entry(1, 2), d_entry(2, 2)])
-        ainv = _sym3_inverse(d6[0] + sw, d6[1], d6[2],
-                             d6[3] + sw, d6[4], d6[5] + sw)
+            def d_entry(i, j):
+                return (psi_d * g[i] * g[j]
+                        + psi_g * (gc_g[:, i] * gc_g[:, j]).sum(0))
+            d6 = torch.stack([d_entry(0, 0), d_entry(0, 1), d_entry(0, 2),
+                              d_entry(1, 1), d_entry(1, 2), d_entry(2, 2)])
+            ainv = _sym3_inverse(d6[0] + sw, d6[1], d6[2],
+                                 d6[3] + sw, d6[4], d6[5] + sw)
     return SolveTerms(c=c.to(store), g=g.to(store), w=w_dirs,
                       sw_inv=sw_inv, smt=smt, psi_s=psi_s, psi_d=psi_d,
                       ainv=ainv, d6=d6)

@@ -61,7 +61,13 @@ ALLOCATOR_HEADROOM = 1.3
 _INCORE_BYTES = {
     "flat": 258,            # SOR (K1) or Jacobi, flat layout
     "packed": 298,          # SOR in the packed layout (K4)
-    "gamma": 474,           # gradient constancy, flat (K6) or multigrid
+    # Gradient constancy, flat (K6) or multigrid, graphed: allocated 415 B
+    # a voxel flat at 256^3 and 512^3 (reserved 485 and 506: 67.97e9 B at
+    # 512^3), multigrid 487 at 256^3 (reserved 571-583). 470 x
+    # ALLOCATOR_HEADROOM covers each reserved peak by 5.6% or more and, at
+    # 512^3 flat (82.09e9 B), stays under an idle card's budget (84.47e9 B;
+    # NVIDIA H100 80GB HBM3, 700 W).
+    "gamma": 470,
     "packed_gamma": 526,    # gradient constancy, packed (K7)
     # Multigrid without gradient constancy (K6): 331 eager; graphed the
     # frozen system of every level stays in the pool and the pool's

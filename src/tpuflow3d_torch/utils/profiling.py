@@ -9,14 +9,22 @@ trace.
 
 The tracer (``span``, ``count``) marks the program's layer boundaries: the
 graph replays of each segment, the early stop's host reads, the streamed
-mode's host arrays and staging. It is off by default, and then a site
-costs one test of a module-level boolean. Turned on (``enable``, or
-``device_trace`` for its block) a span adds its calls, host seconds and
-self seconds (less the spans opened inside it) to a table, and, while a
-``torch.profiler`` runs, is a ``record_function`` range too: a host event
-in the same trace as the device activities, so that the kernels a replay
-launches and the device's idle gaps can be put down to it. Spans never
-synchronise the device and are opened from the calling thread only.
+mode's host arrays and staging, the gradient-constancy terms. It is off by
+default, and then a site costs one test of a module-level boolean. Turned
+on (``enable``, or ``device_trace`` for its block) a span adds its calls,
+host seconds and self seconds (less the spans opened inside it) to a
+table, and, while a ``torch.profiler`` runs, is a ``record_function``
+range too: a host event in the same trace as the device activities, so
+that the kernels a replay launches and the device's idle gaps can be put
+down to it. Spans never synchronise the device and are opened from the
+calling thread only.
+
+A CUDA graph runs the host code of its segment once, at its capture, and
+none of it at a replay: the counts made inside a capture are kept apart
+(``counted_apart``, which records them whether the tracer is on or not)
+and each replay adds them (``add_counts``), as ``kernels.LAUNCHES`` counts
+a graph's launches. The spans inside a replayed segment do not open; its
+work lies under the replay's own span.
 """
 
 from __future__ import annotations
@@ -66,6 +74,7 @@ _NULL = contextlib.nullcontext()
 _SPANS: dict[str, list] = {}    # name -> [calls, seconds, self seconds]
 _COUNTERS: dict[str, int] = {}
 _OPEN: list[float] = []         # seconds of the child spans of each open span
+_APART: list[dict] = []         # the counts of each open ``counted_apart``
 
 
 class _Span:
@@ -107,9 +116,32 @@ def span(name: str):
 
 
 def count(name: str, n: int) -> None:
-    """Add ``n`` to counter ``name`` while tracing is on."""
+    """Add ``n`` to counter ``name`` while tracing is on (inside a
+    ``counted_apart`` block, to that block's counts instead)."""
+    if _ON or _APART:
+        into = _APART[-1] if _APART else _COUNTERS
+        into[name] = into.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def counted_apart():
+    """Counts made inside go to the dict it yields (name -> total), with
+    the tracer on or off, and not to the counters: a CUDA graph's capture,
+    whose counts each replay adds (``add_counts``)."""
+    made: dict = {}
+    _APART.append(made)
+    try:
+        yield made
+    finally:
+        _APART.pop()
+
+
+def add_counts(made: dict) -> None:
+    """Add counts made elsewhere (a CUDA graph's capture, at each of its
+    replays) to the counters while tracing is on."""
     if _ON:
-        _COUNTERS[name] = _COUNTERS.get(name, 0) + n
+        for name, n in made.items():
+            _COUNTERS[name] = _COUNTERS.get(name, 0) + n
 
 
 def enable(on: bool = True) -> bool:

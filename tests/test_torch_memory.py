@@ -94,6 +94,28 @@ def test_incore_model_above_the_references():
             shape, ref_p)
 
 
+# The graphed in-core gamma solve on the card (NVIDIA H100 80GB HBM3,
+# 700 W): reserved peaks of its first call, which captures the graphs, in
+# bytes, and the budget of an idle card (``device_budget_bytes``).
+GAMMA_RESERVED = {("ladder512", 512): 67974987776,
+                  ("ladder256", 256): 8128561152,
+                  ("accurate", 256): 9785311232}
+IDLE_CARD_BUDGET = 84465090560
+
+
+@pytest.mark.parametrize("preset, n", sorted(GAMMA_RESERVED))
+def test_gamma_row_covers_the_reserved_peaks(preset, n):
+    """The ``gamma`` row, flat (K6) or multigrid, covers each reserved peak
+    by at least 5%; at 512^3 flat it stays under an idle card's budget, so
+    the command line's auto mode keeps the pair in core."""
+    p = PRESETS[preset].replace(gamma=1.0)
+    need = mem.incore_peak_bytes((n,) * 3, p)
+    assert need >= 1.05 * GAMMA_RESERVED[preset, n]
+    if n == 512:
+        assert need < IDLE_CARD_BUDGET
+        assert mem.incore_fits_index_limits((n,) * 3, p)
+
+
 @pytest.mark.parametrize("preset", ["ladder512", "ladder1024"])
 def test_index_limits_at_709_against_710(preset):
     """z_multiple 8 pads 709 and 710 to 712 planes: 6*712*709^2 < 2^31 <=

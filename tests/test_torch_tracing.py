@@ -16,12 +16,22 @@ CPU at 16^3-32^3:
 (e) ``device_trace`` (the command line's ``--profile-dir``) turns the
     tracer on for its block, and its Chrome trace holds the spans;
 (f) the points the benchmark (``flowbench/system.py``) wraps stay where it
-    finds them.
+    finds them;
+(g) gradient constancy: ``tf3d.gc.derivs`` opens once a warp and
+    ``tf3d.gc.terms`` once a nonlinearity update, their voxel counters
+    weigh each by its level's voxels, nothing of either at gamma 0, the
+    counts of a graph's capture are added at each replay
+    (``counted_apart``, ``add_counts``), and, on the card (``cuda``), a
+    replayed pair counts what the eager solve counts.
 """
 
 import inspect
 import json
+import os
+import subprocess
+import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -252,3 +262,130 @@ def test_the_benchmarks_wrap_points_stay():
                  "_stream_resample", "_stream",
                  "_stream_fused_warp_iteration", "_stream_mg_solve"):
         assert inspect.isfunction(pw.__dict__[name])
+
+
+# ---- (g) gradient constancy ----
+
+GAMMA = {"ladder256": INCORE["ladder256"].replace(gamma=1.0),
+         "accurate": INCORE["accurate"].replace(gamma=1.0)}
+GC = ("tf3d.gc.derivs", "tf3d.gc.terms")
+
+
+def _gc_expected(p, shape):
+    """(derivs spans, terms spans, derivs voxels, terms voxels) of one
+    pair: one terms build a warp, one system a nonlinearity update."""
+    per_level = [int(np.prod(s)) for s in p.level_shapes(shape)]
+    n = len(per_level)
+    inner = p.inner_iterations
+    return (p.warps * n, p.warps * inner * n, p.warps * sum(per_level),
+            p.warps * inner * sum(per_level))
+
+
+@pytest.mark.parametrize("name", list(GAMMA))
+def test_gc_spans_and_counters_over_one_pair(name):
+    p = GAMMA[name]
+    i0, i1 = _pair((16, 16, 16))
+    want = _incore(i0, i1, p)
+    got = _traced(_incore, i0, i1, p)
+    assert torch.equal(got, want)
+    snap = profiling.snapshot()
+    derivs, terms, dvox, tvox = _gc_expected(p, (16, 16, 16))
+    assert snap["spans"]["tf3d.gc.derivs"]["calls"] == derivs
+    assert snap["spans"]["tf3d.gc.terms"]["calls"] == terms
+    assert snap["counters"]["gc.derivs_voxels"] == dvox
+    assert snap["counters"]["gc.terms_voxels"] == tvox
+    # 16^3 in two levels: 4096 + 512 voxels.
+    assert len(p.level_shapes((16, 16, 16))) == 2
+    for k in GC:
+        row = snap["spans"][k]
+        assert 0.0 <= row["self_seconds"] <= row["seconds"]
+
+
+@pytest.mark.parametrize("name", list(INCORE))
+def test_gamma_0_counts_nothing_of_gc(name):
+    _traced(_incore, *_pair((16, 16, 16)), INCORE[name])
+    snap = profiling.snapshot()
+    assert snap["spans"] and not set(GC) & set(snap["spans"])
+    assert not {"gc.derivs_voxels", "gc.terms_voxels"} & set(
+        snap["counters"])
+
+
+def test_counts_apart_are_added_at_each_replay():
+    """A capture's counts go apart, whether the tracer is on or off, and
+    each replay adds them while it is on."""
+    with profiling.counted_apart() as made:
+        profiling.count("gc.terms_voxels", 5)
+        with profiling.counted_apart() as inner:
+            profiling.count("gc.terms_voxels", 2)
+        profiling.count("gc.derivs_voxels", 1)
+    assert made == {"gc.terms_voxels": 5, "gc.derivs_voxels": 1}
+    assert inner == {"gc.terms_voxels": 2}
+    profiling.add_counts(made)
+    assert profiling.snapshot()["counters"] == {}
+    profiling.enable(True)
+    with profiling.counted_apart():
+        profiling.count("gc.terms_voxels", 100)
+    profiling.add_counts(made)
+    profiling.add_counts(made)
+    assert profiling.snapshot()["counters"] == {"gc.terms_voxels": 10,
+                                                "gc.derivs_voxels": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(GAMMA))
+def test_a_replayed_pair_counts_what_the_eager_one_counts(name):
+    """On the card the spans inside a replay do not open; the counters of
+    a replayed pair (the graphs captured by a first call) equal those of
+    the eager solve ``compute_flow_impl``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "false)")
+    from tpuflow3d_torch.grid import HaloCtx
+    from tpuflow3d_torch.pipeline import compute_flow_impl
+    p = GAMMA[name]
+    dev = torch.device("cuda", 0)
+    i0, i1 = (torch.from_numpy(x).to(dev) for x in _pair())
+    try:
+        compute_flow(i0, i1, p)              # captures the graphs
+        replayed = _traced(compute_flow, i0, i1, p)
+        torch.cuda.synchronize(dev)
+        snap = profiling.snapshot()
+        assert "tf3d.replay.warp" in snap["spans"] or \
+            "tf3d.replay.pre" in snap["spans"]
+        assert not set(GC) & set(snap["spans"])
+        counted = snap["counters"]
+        profiling.reset()
+        eager = _traced(compute_flow_impl, i0, i1, p, HaloCtx())
+        torch.cuda.synchronize(dev)
+        snap = profiling.snapshot()
+        assert counted == snap["counters"]
+        _, _, dvox, tvox = _gc_expected(p, S32)
+        assert counted == {"gc.derivs_voxels": dvox,
+                           "gc.terms_voxels": tvox}
+        assert {k: snap["spans"][k]["calls"] for k in GC} == dict(
+            zip(GC, _gc_expected(p, S32)[:2]))
+        assert torch.equal(replayed, eager)
+    finally:
+        graphs.clear()
+
+
+def test_trace_split_reports_no_gc_share_on_the_cpu(tmp_path):
+    """``tools/torch_trace_split.py`` runs the gamma cell at 16^3 on the
+    CPU: the eager pair's spans and counters are there, and the shares of
+    device time are None (no device activity)."""
+    root = Path(__file__).resolve().parents[1]
+    out = tmp_path / "split.json"
+    subprocess.run(
+        [sys.executable, str(root / "tools" / "torch_trace_split.py"),
+         "--device", "cpu", "--edge", "16", "--rounds", "1",
+         "--cells", "gamma-512-incore", "--out", str(out)],
+        check=True, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, OMP_NUM_THREADS="2"))
+    (cell,) = json.loads(out.read_text())["cells"]
+    gc = cell["gc"]
+    assert gc["gc_plain_share"] is None and gc["device_s"] == 0.0
+    # 16^3 with coarsest_planes 16: one level, 3 warps x 3 inner.
+    assert gc["spans"]["tf3d.gc.derivs"]["calls"] == 3
+    assert gc["spans"]["tf3d.gc.terms"]["calls"] == 9
+    assert gc["counters"] == gc["replayed_counters"] == {
+        "gc.derivs_voxels": 3 * 4096, "gc.terms_voxels": 9 * 4096}

@@ -23,6 +23,16 @@ then:
   beside ``plain_ops_share``, and ``early_stop_idle_share`` (the device's
   idle time inside ``tf3d.early_stop`` spans, less the gaps under the
   profiler's own buffer work) beside ``device_idle_share``;
+- in core with gamma > 0: the graphs dropped, one pair of the eager
+  solve (``pipeline.compute_flow_impl``, the volumes already on the
+  device) profiled with the tracer on, whose spans open where a replay's
+  do not: ``gc_plain_share``, the device seconds of the kernels launched
+  inside ``tf3d.gc.*`` spans (``gc_terms``' derivatives and
+  ``compute_terms``' gradient-constancy branch, all plain PyTorch) over
+  the pair's device seconds, each kernel placed by the host event its
+  link (a) names (link (b), its runtime launch, where that covers more),
+  and the pair's counters (``gc.derivs_voxels``, ``gc.terms_voxels``)
+  beside those of a replayed pair;
 - streamed: an unprofiled round with the tracer on (its table over the
   round's wall: ``tf3d.stream.host_arrays``, the staging spans, and
   ``stage.h2d_bytes`` per pair against ``piecewise.stream_h2d_bytes``),
@@ -66,6 +76,7 @@ PROFILER_OWN = ("Activity Buffer Request", "Buffer Flush")
 PYRAMID = ("prep", "up")
 TERMS = ("warp", "pre", "terms", "post")
 REPLAY = "tf3d.replay."
+GC = "tf3d.gc."
 
 
 def events(prof):
@@ -240,18 +251,80 @@ def rounds(bench, pairs, n, voxels):
             / statistics.median(got["off"])}
 
 
-def profiled(bench, pairs, on: bool):
+def profiled(solve, pairs, on: bool):
+    """``solve`` on each pair under the profiler, the tracer on or off:
+    (host events, device events, the pairs' span)."""
     prof = _profiler()
     profiling.enable(on)
     prof.start()
     for i0, i1 in pairs:
         with torch.profiler.record_function(devtrace.PAIR):
-            bench.system.solve(i0, i1)
+            solve(i0, i1)
     prof.stop()
     profiling.enable(False)
     host, dev = events(prof)
     marks = [h for h in host if h[0] == devtrace.PAIR]
     return host, dev, (min(h[1] for h in marks), max(h[2] for h in marks))
+
+
+def gc_split(host, dev, span) -> dict:
+    """The eager pair's device time inside the ``tf3d.gc.*`` spans."""
+    s0, s1 = span
+    dev = [d for d in dev if d[2] > s0 and d[1] < s1]
+    spans = Spans([h for h in host if h[0].startswith(GC)])
+    by_corr = {h[3]: h for h in host if h[3]}
+    runtime = {h[3]: h for h in host if h[3] and h[0].startswith("cuda")}
+    kernels = [d for d in dev if d[3] == "kernel"]
+    kernel_s = sum(d[2] - d[1] for d in kernels) * 1e-9
+    all_s = sum(d[2] - d[1] for d in dev) * 1e-9
+    links = {"linked_correlation_id": [by_corr.get(d[5]) for d in kernels],
+             "correlation_id": [runtime.get(d[4]) for d in kernels]}
+    cover = {k: (100.0 * sum(d[2] - d[1] for d, h in zip(kernels, hs)
+                             if h is not None) * 1e-9 / kernel_s
+                 if kernel_s > 0 else None) for k, hs in links.items()}
+    link = max(cover, key=lambda k: cover[k] or -1.0)
+    inside = {}
+    for d, h in zip(kernels, links[link]):
+        sp = h and spans.at(h[1])
+        if sp:
+            inside[sp[0]] = inside.get(sp[0], 0.0) + (d[2] - d[1]) * 1e-9
+    return {"device_s": all_s, "kernel_s": kernel_s, "links": cover,
+            "link": link, "gc_device_s": inside,
+            "gc_plain_share": (100.0 * sum(inside.values()) / all_s
+                               if all_s > 0 else None)}
+
+
+def eager_gc(bench, pairs) -> dict:
+    """One eager pair profiled with the tracer on (the graphs dropped
+    first), its gradient-constancy split and counters, and a replayed
+    pair's counters."""
+    from tpuflow3d_torch.grid import HaloCtx
+    from tpuflow3d_torch.pipeline import _pad_z, compute_flow_impl
+    p = bench.system.p
+    profiling.reset()
+    profiling.enable(True)
+    bench.system.solve(*pairs[0])
+    profiling.enable(False)
+    replayed = profiling.snapshot()["counters"]
+    profiling.reset()
+    bench.system.release()
+
+    def eager(i0, i1):
+        compute_flow_impl(i0, i1, p, HaloCtx())
+        if bench.device.type == "cuda":
+            torch.cuda.synchronize(bench.device)
+
+    pair = _pad_z(*(torch.as_tensor(x, device=bench.device)
+                    for x in pairs[0]), p.z_multiple)
+    host, dev, span = profiled(eager, [pair], True)
+    del pair
+    snap = profiling.snapshot()
+    profiling.reset()
+    out = gc_split(host, dev, span)
+    out.update(counters=snap["counters"], replayed_counters=replayed,
+               spans={k: v for k, v in snap["spans"].items()
+                      if k.startswith(GC)})
+    return out
 
 
 def cell_run(name: str, args, device) -> dict:
@@ -267,14 +340,17 @@ def cell_run(name: str, args, device) -> dict:
     out = {"cell": name, "shape": cell.shape, "mode": cell.mode,
            "cost": rounds(bench, pairs, args.rounds, cell.voxels)}
     if cell.mode == "incore":
-        host, dev, span = profiled(bench, pairs, False)
+        host, dev, span = profiled(bench.system.solve, pairs, False)
         off_span = (span[1] - span[0]) * 1e-9
         del host, dev
-        host, dev, span = profiled(bench, pairs, True)
+        host, dev, span = profiled(bench.system.solve, pairs, True)
         out["profiled_span_s"] = {"off": off_span,
                                   "on": (span[1] - span[0]) * 1e-9}
         out["split"] = split(host, dev, span)
         out["idle"] = idle(host, dev, span)
+        del host, dev
+        if cell.params.get("gamma", 0.0) > 0.0:
+            out["gc"] = eager_gc(bench, pairs)
     else:
         profiling.reset()
         profiling.enable(True)
@@ -303,7 +379,7 @@ def cell_run(name: str, args, device) -> dict:
             "d2h_bytes_per_voxel": snap["counters"].get(
                 "stage.d2h_bytes", 0) / len(pairs) / cell.voxels,
             "spans": snap["spans"]}
-        host, dev, span = profiled(bench, pairs, True)
+        host, dev, span = profiled(bench.system.solve, pairs, True)
         out["idle"] = idle(host, dev, span)
     bench.system.release()
     return out
@@ -333,9 +409,9 @@ def main() -> int:
         r["seconds"] = time.perf_counter() - t
         results["cells"].append(r)
         brief = {k: v for k, v in r.items() if k not in ("split", "idle",
-                                                          "unprofiled")}
+                                                          "unprofiled", "gc")}
         print(f"[trace_split] {json.dumps(brief)}", flush=True)
-        for part in ("split", "idle", "unprofiled"):
+        for part in ("split", "idle", "unprofiled", "gc"):
             if part in r:
                 shown = {k: v for k, v in r[part].items() if k != "spans"}
                 print(f"[trace_split] {name} {part}: {json.dumps(shown)}",
