@@ -49,7 +49,11 @@
    smaller than its 32 x 16 tile and 32-plane chunk, each timed beside
    its bound (60 B/voxel) and the plain version; then a ``ladder512``
    pair at 512^3 in core must launch it exactly 54 times (6 levels x 3
-   warps x 3 inner iterations), its warm wall printed.
+   warps x 3 inner iterations), its warm wall printed. ``[terms_gc]``:
+   K9, the same of the general system (gamma > 0), bitwise against
+   ``solver.general_terms`` on every level shape of ``ladder512`` with
+   gamma 1 at 512^3 and on the small shapes, timed beside its bound (128
+   B/voxel), and 54 launches in such a pair at 512^3.
 4. Drives ``tpuflow3d_torch.compute_flow`` with ``PRESETS["ladder256"]`` on
    a 256^3 blob translation, once through the kernels (backend "auto") and
    once plain, each replayed from the CUDA graphs of ``graphs.py`` (the
@@ -69,11 +73,13 @@
    K5, K6 and K3) on the same pair, with EPE < 1e-3 on both runs, and the
    profiler split.
 6. The same for ``PRESETS["ladder256"]`` with gamma = 1 (gradient
-   constancy on SOR: K2 emitting the warped volume, K6 729 times (one
-   launch per sweep, one per inner iteration on the 16^3 level), K3).
+   constancy on SOR: K2 emitting the warped volume, K9 45 times, K6 729
+   times (one launch per sweep, one per inner iteration on the 16^3
+   level), K3).
 7. The same for ``PRESETS["ladder256"]`` with ``sweep_layout="packed"``
    (the reference's default layout: K4 in place of K1, 1800 launches).
-8. The same with gamma = 1 as well (K7 in place of K6, 1800 launches).
+8. The same with gamma = 1 as well (K7 in place of K6, 1800 launches; K9
+   45).
 9. The same for ``PRESETS["accurate-bf16"]`` (``accurate`` with c and g
    stored in bfloat16: K5, the bfloat16 K6, K3), EPE < 1e-3 on both runs.
 10. Times the flat and the packed layout end to end in turns (flat, packed,
@@ -202,7 +208,8 @@ FLOW_ATOL, FLOW_RTOL = 2e-4, 1e-3
 TOLS = {"sor_halfsweep": (0.0, 0.0), "warp_grad": (1e-5, 1e-5),
         "median3": (0.0, 0.0), "warp_grad_tricubic": (1e-5, 1e-5),
         "sor_gc": (0.0, 0.0), "sor_packed": (5e-5, 1e-5),
-        "sor_gc_packed": (5e-5, 1e-5), "terms": (0.0, 0.0)}
+        "sor_gc_packed": (5e-5, 1e-5), "terms": (0.0, 0.0),
+        "terms_gc": (0.0, 0.0)}
 # kernel -> (the source that holds its device code, the TPU kernel it
 # replaces, the C entry's source where another file holds the body).
 SOURCES = {
@@ -224,6 +231,9 @@ SOURCES = {
                       "src/tpuflow3d/pallas/sor_gc_packed.py:102"),
     "terms": ("src/tpuflow3d_torch/csrc/terms.cu",
               "src/tpuflow3d/solver.py:compute_terms (XLA, no Pallas kernel)"),
+    "terms_gc": ("src/tpuflow3d_torch/csrc/terms.cu",
+                 "src/tpuflow3d/solver.py:compute_terms (XLA, no Pallas "
+                 "kernel)"),
 }
 # kernel -> a pattern that its device functions' names match in a profiler
 # trace. K1 and K6 share the templates of csrc/sor_sweep.cuh (colour_kernel,
@@ -237,7 +247,8 @@ KERNEL_SYMBOLS = {
     "sor_gc": r"tf3d_sweep::\w+_kernel<[\w ]+, *(true|\(bool\)1)",
     "sor_packed": r"::sor_halfsweep_packed_kernel<",
     "sor_gc_packed": r"::sor_halfsweep_gc_packed_kernel<",
-    "terms": r"tf3d_terms::"}
+    "terms": r"tf3d_terms::rank1_kernel",
+    "terms_gc": r"tf3d_terms::gc_kernel"}
 # path -> (preset, changes, the kernels it must launch, EPE limit). A kernel
 # maps to the launch count the path must show exactly, or to None for any
 # count above 0; 900 is 5 levels (all of even W) x 3 warps x 3 inner
@@ -245,7 +256,8 @@ KERNEL_SYMBOLS = {
 # x 2 colours. K6 runs the 20 sweeps of an inner iteration on the coarsest
 # level (16^3 = 4096 voxels) in one launch of one block: 4 x 180 + 9 = 729.
 # K8 makes each nonlinearity update of the rank-1 system on a whole volume:
-# levels x warps x inner iterations, 45 for ladder256 and 120 for accurate.
+# levels x warps x inner iterations, 45 for ladder256 and 120 for accurate;
+# K9 each of the general system with gamma > 0 and SOR: 45.
 # The JAX package's TPU records:
 # ladder256 0.0179 on its bench input; accurate 3.4e-4 and its accuracy
 # gate 1e-3.
@@ -257,13 +269,14 @@ PATHS = {
                  {"warp_grad_tricubic": None, "sor_gc": None,
                   "median3": None, "terms": 120}, 1e-3),
     "gamma": ("ladder256", {"gamma": 1.0},
-              {"warp_grad": None, "sor_gc": 729, "median3": None}, 0.03),
+              {"warp_grad": None, "sor_gc": 729, "median3": None,
+               "terms_gc": 45}, 0.03),
     "packed": ("ladder256", {"sweep_layout": "packed"},
                {"sor_packed": 1800, "warp_grad": None, "median3": None,
                 "terms": 45}, 0.03),
     "packed_gamma": ("ladder256", {"sweep_layout": "packed", "gamma": 1.0},
                      {"sor_gc_packed": 1800, "warp_grad": None,
-                      "median3": None}, 0.03),
+                      "median3": None, "terms_gc": 45}, 0.03),
     "accurate-bf16": ("accurate-bf16", {},
                       {"warp_grad_tricubic": None, "sor_gc": None,
                        "median3": None, "terms": 120}, 1e-3),
@@ -746,60 +759,48 @@ def bits(torch, x):
     return x.contiguous().view(torch.int32)
 
 
-def terms_phase(torch, dev, summary) -> None:
-    """[terms]: K8 bitwise against its plain version at every shape of
-    TERMS_SHAPES and the two presets' levels, each timed (CUDA-event
-    medians of 10) beside its bound; then its launches in a ladder512 pair
-    at 512^3."""
-    from tpuflow3d_torch import PRESETS, compute_flow, graphs, kernels
-    from tpuflow3d_torch.kernels.terms import terms_rank1
-    from tpuflow3d_torch.solver import rank1_terms
+def hold_terms_kernel(torch, dev, summary, tag: str, name: str, shapes,
+                      make, kern, plain, outputs, bytes_per_voxel) -> None:
+    """A nonlinearity-update kernel (``name``: "terms" K8, "terms_gc" K9)
+    bitwise against its plain version at each of ``shapes`` (inputs
+    ``make(shape, du_zero)``, du zero and random), each shape timed
+    (CUDA-event medians of 10) beside its bound; the 256^3 numbers go into
+    ``summary[name]``."""
+    from tpuflow3d_torch import kernels
     from tpuflow3d_torch.utils import roofline
     rates, sheet_bw, probed_bw = (ROOFLINE[k] for k in ("rates", "sheet_bw",
                                                         "probed_bw"))
-    p = PRESETS["ladder512"]
-    shapes = list(dict.fromkeys(
-        TERMS_SHAPES + p.level_shapes((512,) * 3)
-        + PRESETS["accurate"].level_shapes(SHAPE)))
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(8)
-    entry = summary.setdefault("terms", {"max_abs_err": 0.0})
+    entry = summary.setdefault(name, {"max_abs_err": 0.0})
     by_shape = entry.setdefault("by_shape", {})
-
-    def rnd(shape, scale):
-        return torch.randn(shape, generator=gen, device=dev) * scale
-
     for shape in shapes:
         n_vox = shape[0] * shape[1] * shape[2]
-        g, it, flow = rnd((3, *shape), 0.1), rnd(shape, 0.05), rnd(
-            (3, *shape), 0.5)
-        for du in (torch.zeros_like(flow), rnd((3, *shape), 0.05)):
-            kern = lambda: terms_rank1(g, it, flow, du, p)
-            plain = lambda: rank1_terms(g, it, flow, du, p)
-            before = kernels.LAUNCHES["terms"]
-            got, ref = kern(), plain()
+        for du_zero in (True, False):
+            args = make(shape, du_zero)
+            before = kernels.LAUNCHES[name]
+            got, ref = kern(*args), plain(*args)
             torch.cuda.synchronize()
-            if kernels.LAUNCHES["terms"] != before + 1:
-                raise AssertionError(f"terms {shape}: "
-                                     f"{kernels.LAUNCHES['terms'] - before}"
+            if kernels.LAUNCHES[name] != before + 1:
+                raise AssertionError(f"{name} {shape}: "
+                                     f"{kernels.LAUNCHES[name] - before}"
                                      f" launches, expected 1")
-            for name, a, b in zip(("c", "psi_s", "psi_d"), got, ref):
+            for out, a, b in zip(outputs, got, ref):
                 if not torch.equal(bits(torch, a), bits(torch, b)):
                     bad = int((bits(torch, a) != bits(torch, b)).sum())
                     raise AssertionError(
-                        f"terms {shape}: {name} differs from the plain "
+                        f"{name} {shape}: {out} differs from the plain "
                         f"version in {bad} values (max |diff| "
                         f"{float((a - b).abs().max()):.3e})")
-        del got, ref
-        nbytes = roofline.TERMS_BYTES_PER_VOXEL * n_vox
-        ms, plain_ms = cuda_ms(torch, kern), cuda_ms(torch, plain)
-        b = roofline.bound("terms", nbytes, n_vox, bw=sheet_bw, rates=rates)
-        b_probed = roofline.bound("terms", nbytes, n_vox, bw=probed_bw,
+            del got, ref
+        nbytes = bytes_per_voxel * n_vox
+        ms = cuda_ms(torch, lambda: kern(*args))
+        plain_ms = cuda_ms(torch, lambda: plain(*args))
+        b = roofline.bound(name, nbytes, n_vox, bw=sheet_bw, rates=rates)
+        b_probed = roofline.bound(name, nbytes, n_vox, bw=probed_bw,
                                   rates=rates)["bound_ms"]
-        log(f"[terms] {shape}: bitwise the plain version (du zero and "
+        log(f"[{tag}] {shape}: bitwise the plain version (du zero and "
             f"random); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
             f"{b['bound_ms']:.4f} ms by {b['bound_by']} "
-            f"({roofline.TERMS_BYTES_PER_VOXEL} B/voxel: "
+            f"({bytes_per_voxel} B/voxel: "
             f"{100 * b['bound_ms'] / ms:.1f}% of it); at the probed rate "
             f"{b_probed:.4f} ms")
         by_shape["x".join(map(str, shape))] = {
@@ -815,36 +816,111 @@ def terms_phase(torch, dev, summary) -> None:
                              ("bound_probed_ms", b_probed),
                              ("probed_bytes_per_s", probed_bw)):
                 entry[key] = val
-        del g, it, flow, du
+        del args
     torch.cuda.empty_cache()
 
-    # A ladder512 pair at 512^3 in core: one launch per nonlinearity update.
+
+def count_pair_launches(torch, dev, summary, tag: str, name: str, p,
+                        gen) -> None:
+    """A pair of ``p`` at 512^3 in core must launch ``name`` once per
+    nonlinearity update: levels x warps x inner iterations (54 at 512^3);
+    the warm graphed call's wall is printed."""
+    from tpuflow3d_torch import compute_flow, graphs, kernels
     shape = (512, 512, 512)
     base = torch.nn.functional.interpolate(
-        rnd((1, 1, 64, 64, 64), 1.0), size=shape, mode="trilinear",
-        align_corners=False)[0, 0]
+        torch.randn((1, 1, 64, 64, 64), generator=gen, device=dev),
+        size=shape, mode="trilinear", align_corners=False)[0, 0]
     i0, i1 = base, torch.roll(base, shifts=1, dims=2)
     del base
     kernels.reset_launches()
     graphs.clear()
+    torch.cuda.reset_peak_memory_stats(dev)
     compute_flow(i0, i1, p, device=dev)
-    n = kernels.LAUNCHES["terms"]
+    n = kernels.LAUNCHES[name]
     expected = p.warps * p.inner_iterations * len(p.level_shapes(shape))
     t0 = time.perf_counter()
     compute_flow(i0, i1, p, device=dev)
     torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
-    log(f"[terms] ladder512 at 512^3 in core: {n} K8 launches (expected "
+    log(f"[{tag}] a pair at 512^3 in core: {n} {name} launches (expected "
         f"{expected}), warm graphed call {wall:.3f} s "
-        f"({shape[0] ** 3 / wall:.6g} voxels/s)")
+        f"({shape[0] ** 3 / wall:.6g} voxels/s), "
+        f"{torch.cuda.max_memory_reserved(dev) / 2 ** 30:.2f} GiB reserved "
+        f"at the most")
     if n != expected:
-        raise AssertionError(f"ladder512: {n} K8 launches, expected "
+        raise AssertionError(f"{tag}: {n} {name} launches, expected "
                              f"{expected}")
-    entry["launches_ladder512_512"] = n
-    entry["ladder512_512_warm_s"] = wall
+    summary[name]["launches_512"] = n
+    summary[name]["pair_512_warm_s"] = wall
     del i0, i1
     graphs.clear()
     torch.cuda.empty_cache()
+
+
+def terms_phase(torch, dev, summary) -> None:
+    """[terms]: K8 bitwise against its plain version at every shape of
+    TERMS_SHAPES and the two presets' levels, each timed (CUDA-event
+    medians of 10) beside its bound; then its launches in a ladder512 pair
+    at 512^3."""
+    from tpuflow3d_torch import PRESETS
+    from tpuflow3d_torch.kernels.terms import terms_rank1
+    from tpuflow3d_torch.solver import rank1_terms
+    from tpuflow3d_torch.utils import roofline
+    p = PRESETS["ladder512"]
+    shapes = list(dict.fromkeys(
+        TERMS_SHAPES + p.level_shapes((512,) * 3)
+        + PRESETS["accurate"].level_shapes(SHAPE)))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+
+    def rnd(shape, scale):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def make(shape, du_zero):
+        flow = rnd((3, *shape), 0.5)
+        return (rnd((3, *shape), 0.1), rnd(shape, 0.05), flow,
+                torch.zeros_like(flow) if du_zero else rnd((3, *shape), 0.05))
+
+    hold_terms_kernel(torch, dev, summary, "terms", "terms", shapes, make,
+                      lambda *a: terms_rank1(*a, p),
+                      lambda *a: rank1_terms(*a, p), ("c", "psi_s", "psi_d"),
+                      roofline.TERMS_BYTES_PER_VOXEL)
+    count_pair_launches(torch, dev, summary, "terms", "terms", p, gen)
+
+
+def terms_gc_phase(torch, dev, summary) -> None:
+    """[terms_gc]: K9 bitwise against its plain version at every shape of
+    TERMS_SHAPES and of the gamma configuration's levels at 512^3, each
+    timed (CUDA-event medians of 10) beside its bound; then its launches in
+    a gamma pair at 512^3."""
+    from tpuflow3d_torch import PRESETS
+    from tpuflow3d_torch.kernels.terms import terms_general
+    from tpuflow3d_torch.solver import general_terms
+    from tpuflow3d_torch.utils import roofline
+    p = PRESETS["ladder512"].replace(gamma=1.0)
+    # Not the volume of one voxel: there ATen's sum over three components
+    # adds (x0 + x2) + x1, on any larger volume (x0 + x1) + x2, the
+    # kernel's order.
+    shapes = list(dict.fromkeys(
+        [s for s in TERMS_SHAPES if s != (1, 1, 1)]
+        + p.level_shapes((512,) * 3)))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+
+    def rnd(shape, scale):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def make(shape, du_zero):
+        flow = rnd((3, *shape), 0.5)
+        return (rnd((3, *shape), 0.1), rnd(shape, 0.05), flow,
+                torch.zeros_like(flow) if du_zero else rnd((3, *shape), 0.05),
+                rnd((3, 3, *shape), 0.1), rnd((3, *shape), 0.05))
+
+    hold_terms_kernel(torch, dev, summary, "terms_gc", "terms_gc", shapes,
+                      make, lambda *a: terms_general(*a, p),
+                      lambda *a: general_terms(*a, p), ("c", "psi_s", "ainv"),
+                      roofline.TERMS_GC_BYTES_PER_VOXEL)
+    count_pair_launches(torch, dev, summary, "terms_gc", "terms_gc", p, gen)
 
 
 def check_launches(label: str, launches: dict, expected: dict) -> None:
@@ -2775,6 +2851,7 @@ def main() -> None:
 
     # 3b. K8, the rank-1 nonlinearity update.
     terms_phase(torch, dev, summary)
+    terms_gc_phase(torch, dev, summary)
 
     # 4-9. The main paths, each through the kernels, then plain.
     mask = syn.gradient_mask(i0, 0.75) & syn.interior_mask(SHAPE, 4)

@@ -1,7 +1,10 @@
-// K8, the rank-1 nonlinearity update of a whole volume for Hopper (sm_90a):
-// tpuflow3d_torch.solver.compute_terms' (c, psi_s, psi_d) when gamma = 0,
-// in one launch. The JAX package leaves this arithmetic to XLA; the plain
-// version, solver.rank1_terms, makes some fifty passes over the volume.
+// K8 and K9, the nonlinearity update of a whole volume for Hopper
+// (sm_90a): tpuflow3d_torch.solver.compute_terms in one launch. K8
+// (rank1_kernel) makes the rank-1 system's (c, psi_s, psi_d) when gamma =
+// 0; K9 (gc_kernel) the general system's (c, psi_s, ainv) when gamma > 0.
+// The JAX package leaves this arithmetic to XLA; there is no TPU kernel to
+// port. The plain versions, solver.rank1_terms and solver.general_terms,
+// make some fifty and some hundred and fifty passes over the volume.
 //
 // The function (per voxel p; neighbours q in the order z+, z-, y+, y-, x+,
 // x-, edge-replicated; h = alpha/2; m_q = 0 across the volume's faces):
@@ -13,26 +16,44 @@
 //   w_q    = (h (psi_s[p] + psi_s[q])) m_q
 //   nbu_k  = sum over q in order, from 0, of w_q (flow_k[q] - flow_k[p])
 //   c_k    = (-(psi_d it)) g_k + nbu_k
+// and in K9, with G = gc_g (G[a][k]: the derivative along a of g_k) and
+// I = gc_it:
+//   r_a    = I_a + ((G[a][0] du0 + G[a][1] du1) + G[a][2] du2)
+//   psi_g  = gamma rsqrt(((r_0 r_0 + r_1 r_1) + r_2 r_2) + eps_g^2)
+//                                                 (gamma for "quadratic")
+//   c_k    = c_k - (((psi_g I_0) G[0][k] + (psi_g I_1) G[1][k])
+//                   + (psi_g I_2) G[2][k])
+//   d_ij   = (psi_d g_i) g_j + psi_g ((G[0][i] G[0][j] + G[1][i] G[1][j])
+//                                     + G[2][i] G[2][j])
+//   sw     = sum over q in order, from 0, of w_q;  m = d + sw I
+//   ainv   = the cofactors of m times 1 / ((m00 c00 + m01 c01) + m02 c02)
 // Every step is the plain version's operation in its order (built with
-// -fmad=false, rsqrtf as ATen's rsqrt), so the three fields are bitwise
-// the plain version's on the card.
+// -fmad=false, rsqrtf as ATen's rsqrt, IEEE division as ATen's 1 / x), so
+// the fields are bitwise the plain version's on the card.
 //
-// What bounds it: device-memory bytes. g 12 + it 4 + flow 12 + du 12 read,
-// c 12 + psi_s 4 + psi_d 4 written: 60 B/voxel, against ~130 flops.
+// What bounds them: device-memory bytes. K8 reads g 12 + it 4 + flow 12 +
+// du 12 and writes c 12 + psi_s 4 + psi_d 4: 60 B/voxel, against ~130
+// flops. K9 reads gc_g 36 and gc_it 12 more and writes ainv 24 in place of
+// psi_d: 128 B/voxel, against ~270 flops.
 //
 // Design. A block owns a (y, x) tile of kTY x kTX voxels, one thread a
 // voxel, and marches it along a chunk of z. Per step it loads one plane:
 // flow and du on the tile and two voxels around it (T = flow + du into a
 // ring of 3 planes in shared memory, flow on the tile and one voxel around
-// into a ring of 5), and g and it on the tile, where psi_d and the data
-// part of c are made at once (the latter waits two steps in registers).
-// After a barrier it makes psi_s one plane behind on the tile and one
-// voxel around (a ring of 3 planes), and after another, c two planes
-// behind. The next plane's loads are issued before the barriers, so they
-// are in flight while the block computes. Each input crosses the bus
-// once, apart from the halos (from L2) and the four planes each z chunk
-// reads past its ends. Neighbours past the volume's faces are read at the
-// clamped (replicated) position, as the plain version pads.
+// into a ring of 5), and in K8 g and it on the tile, where psi_d and the
+// data part of c are made at once (the latter waits two steps in
+// registers). After a barrier it makes psi_s one plane behind on the tile
+// and one voxel around (a ring of 3 planes), and after another, c two
+// planes behind. The next plane's loads are issued before the barriers, so
+// they are in flight while the block computes. K9 does all its pointwise
+// work at the plane of c: it keeps du two steps in registers, and loads g,
+// it, gc_g and gc_it of that plane one step ahead, so that those sixteen
+// values are in flight across the barriers and not held for two steps.
+// Each input crosses the bus once, apart from the halos (from L2) and the
+// four planes each z chunk reads past its ends. Neighbours past the
+// volume's faces are read at the clamped (replicated) position, as the
+// plain version pads. Both kernels are one template (march): K8's
+// instantiation carries none of K9's work.
 
 #include <cstdint>
 
@@ -52,6 +73,10 @@ constexpr int kSmemFloats = kTSlots * 3 * kP2 + kFSlots * 3 * kP1
                             + kPSlots * kP1;
 constexpr int kZChunk = 32;                    // planes a block marches
 constexpr int kMinBlocks = 2;                  // blocks per SM to allow
+// K9 at two blocks an SM spills (64 registers, 48 bytes a thread); at one
+// it takes 117 registers and no spill, and runs 3% faster (7.37 against
+// 7.62 ms at 512^3; NVIDIA H100 80GB HBM3, 700 W).
+constexpr int kGcMinBlocks = 1;
 constexpr int kSMs = 132;                      // the H100 SXM's SM count
 constexpr int kMaxDevices = 64;
 static_assert(kHalo2 <= kThreads && kRim1 <= kThreads,
@@ -69,6 +94,15 @@ struct Args {
   long long N;  // voxels: the stride between components
   float half_alpha, eps2_d, eps2_s;
   int charb_d, charb_s;  // 1: Charbonnier, 0: quadratic
+};
+
+// K9's further inputs and its output in psi_d's place.
+struct GcArgs {
+  const float* gg;  // gc_g (3, 3, D, H, W): [a][k] at (3 a + k) N
+  const float* gi;  // gc_it (3, D, H, W)
+  float* ainv;      // (6, D, H, W): rows 00, 01, 02, 11, 12, 22
+  float gamma, eps2_g;
+  int charb_g;
 };
 
 __device__ __forceinline__ float penalizer(float q2, float eps2, int charb) {
@@ -100,8 +134,10 @@ __device__ __forceinline__ float psi_s_at(const Args& a, const float* tm,
   return penalizer(s2, a.eps2_s, a.charb_s);
 }
 
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-    rank1_kernel(const Args a, int zchunk) {
+// The z march of one block: K8 (kGc false) or K9 (kGc true).
+template <bool kGc>
+__device__ __forceinline__ void march(const Args& a, const GcArgs& ga,
+                                      int zchunk) {
   extern __shared__ __align__(16) float smem[];
   float* const tot = smem;                          // [3][3][kP2]
   float* const flw = tot + kTSlots * 3 * kP2;       // [5][3][kP1]
@@ -182,7 +218,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       rf[k] = a.flow[k * N + pb + own];
       rd[k] = a.du[k * N + pb + own];
     }
-    if (z >= zs && z < ze) {
+    if (!kGc && z >= zs && z < ze) {
 #pragma unroll
       for (int k = 0; k < 3; ++k) rg[k] = a.g[k * N + pb + own];
       rit = a.it[pb + own];
@@ -199,12 +235,28 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   // The data part of c, -(psi_d it) g, of the planes loaded one (q1) and
   // two (q2) steps before.
   float q1[3] = {0.f, 0.f, 0.f}, q2[3] = {0.f, 0.f, 0.f};
+  // K9: du of the plane loaded this step (e0) and of the two before (e1,
+  // e2), and g, it, gc_g, gc_it of the plane of c, loaded a step ahead.
+  float e0[3] = {0.f, 0.f, 0.f}, e1[3] = {0.f, 0.f, 0.f},
+        e2[3] = {0.f, 0.f, 0.f}, cg[3], cit, gG[9], gI[3];
+  auto fetch_c = [&](int z) {
+    const long long pb = (long long)z * a.HW + own;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) cg[k] = a.g[k * N + pb];
+    cit = a.it[pb];
+#pragma unroll
+    for (int i = 0; i < 9; ++i) gG[i] = ga.gg[i * N + pb];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) gI[k] = ga.gi[k * N + pb];
+  };
   const float h = a.half_alpha;
+  if (kGc && valid) fetch_c(zs);
   fetch(zs - 2);
   // Step j loads plane k = zs - 2 + j; a plane's slot in each ring is its
   // step modulo the ring's size.
   for (int k = zs - 2, j = 0; k <= ze + 1; ++k, ++j) {
-    {  // Plane k into the rings; psi_d and the data part of c.
+    {  // Plane k into the rings; K8: psi_d and the data part of c; K9:
+       // du kept for its plane of c.
       float* tk = tot + (j % kTSlots) * 3 * kP2;
       float* fk = flw + (j % kFSlots) * 3 * kP1;
 #pragma unroll
@@ -218,7 +270,14 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       }
     }
     float dt[3] = {0.f, 0.f, 0.f};
-    if (k >= zs && k < ze) {
+    if constexpr (kGc) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        e2[c] = e1[c];
+        e1[c] = e0[c];
+        e0[c] = rd[c];
+      }
+    } else if (k >= zs && k < ze) {
       const float r = rit + ((rg[0] * rd[0] + rg[1] * rd[1]) + rg[2] * rd[2]);
       const float pd = penalizer(r * r, a.eps2_d, a.charb_d);
       if (valid) a.pd[(long long)k * a.HW + own] = pd;
@@ -261,6 +320,23 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                           (h * (psp + p0[own1 + o_xp])) * m_xp,
                           (h * (psp + p0[own1 + o_xm])) * m_xm};
       const long long pb = (long long)z * a.HW + own;
+      float pd = 0.f, npi = 0.f, pg = 0.f, pI[3] = {0.f, 0.f, 0.f};
+      if constexpr (kGc) {
+        // psi_d and the data part of c, as K8 makes them, and psi_g.
+        const float r = cit + ((cg[0] * e2[0] + cg[1] * e2[1])
+                               + cg[2] * e2[2]);
+        pd = penalizer(r * r, a.eps2_d, a.charb_d);
+        npi = -(pd * cit);
+        float rr[3];
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          rr[i] = gI[i] + ((gG[3 * i] * e2[0] + gG[3 * i + 1] * e2[1])
+                           + gG[3 * i + 2] * e2[2]);
+        pg = ga.gamma * penalizer((rr[0] * rr[0] + rr[1] * rr[1])
+                                  + rr[2] * rr[2], ga.eps2_g, ga.charb_g);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) pI[i] = pg * gI[i];
+      }
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
         const int o = c * kP1 + own1;
@@ -272,15 +348,86 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
         n = n + w[3] * (f0[o + o_ym] - u);
         n = n + w[4] * (f0[o + o_xp] - u);
         n = n + w[5] * (f0[o + o_xm] - u);
-        a.c[c * N + pb] = q2[c] + n;
+        if constexpr (kGc)
+          a.c[c * N + pb] = (npi * cg[c] + n)
+                            - ((pI[0] * gG[c] + pI[1] * gG[3 + c])
+                               + pI[2] * gG[6 + c]);
+        else
+          a.c[c * N + pb] = q2[c] + n;
+      }
+      if constexpr (kGc) {
+        // m = d + sw I and its inverse, as solver._sym3_inverse.
+        float sw = 0.f;
+#pragma unroll
+        for (int q = 0; q < 6; ++q) sw = sw + w[q];
+        auto d = [&](int i, int j) {
+          return (pd * cg[i]) * cg[j]
+                 + pg * ((gG[i] * gG[j] + gG[3 + i] * gG[3 + j])
+                         + gG[6 + i] * gG[6 + j]);
+        };
+        const float m00 = d(0, 0) + sw, m01 = d(0, 1), m02 = d(0, 2);
+        const float m11 = d(1, 1) + sw, m12 = d(1, 2), m22 = d(2, 2) + sw;
+        const float cof[6] = {m11 * m22 - m12 * m12, m02 * m12 - m01 * m22,
+                              m01 * m12 - m02 * m11, m00 * m22 - m02 * m02,
+                              m01 * m02 - m00 * m12, m00 * m11 - m01 * m01};
+        const float det_inv =
+            1.f / ((m00 * cof[0] + m01 * cof[1]) + m02 * cof[2]);
+#pragma unroll
+        for (int q = 0; q < 6; ++q) ga.ainv[q * N + pb] = cof[q] * det_inv;
       }
     }
+    if constexpr (kGc) {
+      if (j >= 4 && valid && z + 1 < ze) fetch_c(z + 1);
+    } else {
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      q2[c] = q1[c];
-      q1[c] = dt[c];
+      for (int c = 0; c < 3; ++c) {
+        q2[c] = q1[c];
+        q1[c] = dt[c];
+      }
     }
   }
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    rank1_kernel(const Args a, int zchunk) {
+  march<false>(a, GcArgs{}, zchunk);
+}
+
+__global__ void __launch_bounds__(kThreads, kGcMinBlocks)
+    gc_kernel(const Args a, const GcArgs ga, int zchunk) {
+  march<true>(a, ga, zchunk);
+}
+
+// Sets up a launch of `kernel` over a (D, H, W) volume: 0 with the grid
+// and the z chunk, -1 for an empty volume, or an error: cudaErrorInvalidValue
+// for a grid the launch cannot take (D or the tiles along H past 65535, a
+// plane of 2^31 voxels or more). `allowed` records per device that the
+// dynamic shared memory past 48 KB was allowed (the first launch is an
+// eager one: graphs warm up before they capture).
+template <typename Kernel>
+int plan(Kernel kernel, bool* allowed, int min_blocks, int D, int H, int W,
+         dim3& grid, int& zchunk) {
+  if (D < 0 || H < 0 || W < 0) return (int)cudaErrorInvalidValue;
+  if ((long long)D * H * W == 0) return -1;
+  const int ty = (H + kTY - 1) / kTY, tx = (W + kTX - 1) / kTX;
+  if (D > 65535 || ty > 65535 || (long long)H * W >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= kMaxDevices || !allowed[dev]) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmemFloats * (int)sizeof(float));
+    if (e != cudaSuccess) return (int)e;
+    if (dev < kMaxDevices) allowed[dev] = true;
+  }
+  // Chunks of z short enough that each SM gets its blocks.
+  zchunk = kZChunk;
+  while (zchunk > 8 && tx * ty * ((D + zchunk - 1) / zchunk) <
+                           min_blocks * kSMs)
+    zchunk /= 2;
+  grid = dim3(tx, ty, (D + zchunk - 1) / zchunk);
+  return 0;
 }
 
 }  // namespace tf3d_terms
@@ -288,39 +435,48 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 // g, it, flow, du (float32, contiguous, (3,)D,H,W) -> c, psi_s, psi_d.
 // eps2_*: the squared epsilons as float32; charb_*: 1 for Charbonnier, 0
 // for the quadratic penalizer. Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a grid the launch cannot take (D or the tiles
-// along H past 65535, a plane of 2^31 voxels or more).
+// cudaErrorInvalidValue for a grid the launch cannot take (tf3d_terms::plan).
 extern "C" int tf3d_terms_rank1(const float* g, const float* it,
                                 const float* flow, const float* du, float* c,
                                 float* ps, float* pd, int D, int H, int W,
                                 float half_alpha, float eps2_d, float eps2_s,
                                 int charb_d, int charb_s, void* stream) {
   using namespace tf3d_terms;
-  if (D < 0 || H < 0 || W < 0) return (int)cudaErrorInvalidValue;
-  if ((long long)D * H * W == 0) return 0;
-  const int ty = (H + kTY - 1) / kTY, tx = (W + kTX - 1) / kTX;
-  if (D > 65535 || ty > 65535 || (long long)H * W >= (1LL << 31))
-    return (int)cudaErrorInvalidValue;
-  // The dynamic shared memory past 48 KB is allowed once per device (the
-  // first launch is an eager one: graphs warm up before they capture).
   static bool allowed[kMaxDevices];
-  int dev = 0;
-  cudaGetDevice(&dev);
-  const int bytes = kSmemFloats * (int)sizeof(float);
-  if (dev >= kMaxDevices || !allowed[dev]) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        rank1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return (int)e;
-    if (dev < kMaxDevices) allowed[dev] = true;
-  }
-  // Chunks of z short enough that each SM gets its kMinBlocks blocks.
-  int zchunk = kZChunk;
-  while (zchunk > 8 && tx * ty * ((D + zchunk - 1) / zchunk) <
-                           kMinBlocks * kSMs)
-    zchunk /= 2;
+  dim3 grid;
+  int zchunk = 0;
+  const int e = plan(rank1_kernel, allowed, kMinBlocks, D, H, W, grid,
+                     zchunk);
+  if (e) return e < 0 ? 0 : e;
   Args a{g,  it, flow, du, c, ps, pd, D, H, W, H * W,
          (long long)D * H * W, half_alpha, eps2_d, eps2_s, charb_d, charb_s};
-  rank1_kernel<<<dim3(tx, ty, (D + zchunk - 1) / zchunk), kThreads, bytes,
+  rank1_kernel<<<grid, kThreads, kSmemFloats * (int)sizeof(float),
                  (cudaStream_t)stream>>>(a, zchunk);
+  return (int)cudaGetLastError();
+}
+
+// K9: g, it, flow, du and gc_g (3, 3, D, H, W), gc_it (3, D, H, W), all
+// float32 and contiguous -> c, psi_s, ainv (6, D, H, W). gamma: the float32
+// weight of gradient constancy; eps2_g, charb_g: its penalizer, as those of
+// the data and smoothness terms. Returns as tf3d_terms_rank1.
+extern "C" int tf3d_terms_gc(const float* g, const float* it,
+                             const float* flow, const float* du,
+                             const float* gc_g, const float* gc_it, float* c,
+                             float* ps, float* ainv, int D, int H, int W,
+                             float half_alpha, float eps2_d, float eps2_s,
+                             float eps2_g, float gamma, int charb_d,
+                             int charb_s, int charb_g, void* stream) {
+  using namespace tf3d_terms;
+  static bool allowed[kMaxDevices];
+  dim3 grid;
+  int zchunk = 0;
+  const int e = plan(gc_kernel, allowed, kGcMinBlocks, D, H, W, grid,
+                     zchunk);
+  if (e) return e < 0 ? 0 : e;
+  Args a{g,  it, flow, du, c, ps, nullptr, D, H, W, H * W,
+         (long long)D * H * W, half_alpha, eps2_d, eps2_s, charb_d, charb_s};
+  GcArgs ga{gc_g, gc_it, ainv, gamma, eps2_g, charb_g};
+  gc_kernel<<<grid, kThreads, kSmemFloats * (int)sizeof(float),
+              (cudaStream_t)stream>>>(a, ga, zchunk);
   return (int)cudaGetLastError();
 }

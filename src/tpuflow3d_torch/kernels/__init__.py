@@ -19,7 +19,8 @@ point that launches its kernel on a given stream and returns
   window or, in halo form, a Z shard;
 - ``median3.cu`` K3, the 3x3x3 median (``kernels/median3.py``);
 - ``terms.cu`` K8, the rank-1 nonlinearity update of a whole volume,
-  ``solver.compute_terms``' c, psi_s and psi_d (``kernels/terms.py``);
+  ``solver.compute_terms``' c, psi_s and psi_d, and K9, the same of the
+  general system (gamma > 0): c, psi_s and ainv (``kernels/terms.py``);
 - ``probe.cu`` no kernel of the path: the streaming copy and the
   fminf/fmaxf loop with which ``utils/roofline.py`` measures the card.
 
@@ -68,7 +69,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES = {"sor_halfsweep": 0, "warp_grad": 0, "median3": 0,
             "warp_grad_tricubic": 0, "sor_gc": 0, "sor_packed": 0,
-            "sor_gc_packed": 0, "terms": 0}
+            "sor_gc_packed": 0, "terms": 0, "terms_gc": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)
@@ -100,6 +101,10 @@ _SIGNATURES = {
     # g, it, flow, du, c, psi_s, psi_d, D, H, W, half_alpha, eps_data^2,
     # eps_smooth^2, Charbonnier data, Charbonnier smoothness, stream
     "tf3d_terms_rank1": [_P] * 7 + [_I] * 3 + [_F] * 3 + [_I] * 2 + [_P],
+    # g, it, flow, du, gc_g, gc_it, c, psi_s, ainv, D, H, W, half_alpha,
+    # eps_data^2, eps_smooth^2, eps_grad^2, gamma, Charbonnier data,
+    # smoothness and gradient, stream
+    "tf3d_terms_gc": [_P] * 9 + [_I] * 3 + [_F] * 5 + [_I] * 3 + [_P],
     # The probes of utils/roofline.py. dst, src, float4 count, reps, stream
     "tf3d_copy_probe": [_P, _P, ctypes.c_longlong, _I, _P],
     # out, blocks, iters, stream

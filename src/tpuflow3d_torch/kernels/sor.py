@@ -7,7 +7,8 @@ factors per voxel from the stored g, so the precomputed
 ``SolveTerms.w/sw_inv/smt`` are read only by the plain version,
 ``solver.sor_halfsweep``, which the wrappers run for CPU tensors (it too
 remakes ``smt`` where g is stored in bfloat16; ``with_weights`` remakes
-all three where compute_terms' K8 route left them out).
+all three where compute_terms' K8 route left them out, and the weights
+where its K9 route did).
 
 - ``sor_sweeps`` returns the iterate after n full sweeps (red, then black).
   On a whole volume each sweep is one launch of the fused kernel; a slab
@@ -38,10 +39,14 @@ RED, BLACK, RED_THEN_BLACK = 0, 1, 2
 def with_weights(t: SolveTerms, alpha: float, ctx: HaloCtx) -> SolveTerms:
     """t with the weights, sw_inv and smt that the plain version reads,
     remade from (g, psi_s, psi_d) by compute_terms' arithmetic where its
-    K8 route left them out (as the kernels remake them)."""
+    K8 route left them out (as the kernels remake them); of the general
+    system (K9's route: ainv set) the weights alone, which is all the
+    plain version reads beside ainv."""
     if t.w is not None:
         return t
     w, sw = _weight_block(t.psi_s, alpha, ctx)
+    if t.ainv is not None:
+        return t._replace(w=w)
     sw_inv = 1.0 / sw
     g = t.g.float()
     smt = t.psi_d * sw_inv / (sw + t.psi_d * (g * g).sum(0))

@@ -7,7 +7,10 @@ neighbour weights from psi_s with one alpha per axis (z, y, x): (alpha,
 alpha, alpha) for the fine gamma > 0 sweep, alpha/h^2 per axis on a
 multigrid level. The plain version, run for CPU tensors, is
 ``solver.sor_halfsweep`` on the same SolveTerms, which reads the
-precomputed weights ``t.w`` (made with the same alphas).
+precomputed weights ``t.w`` (made with the same alphas), or remakes them
+from psi_s where compute_terms' K9 route left them out
+(``kernels.sor.with_weights``; that route's sweep is the fine system's,
+whose three alphas are one).
 
 - ``sor_gc_sweeps`` returns the iterate after n full sweeps: on one device
   one fused launch per sweep, or, for a grid of at most 4096 voxels (the
@@ -26,7 +29,7 @@ import torch
 from tpuflow3d_torch.grid import HaloCtx
 from tpuflow3d_torch.kernels.sor import (BLACK, RED, RED_THEN_BLACK,
                                          require_cuda, launch_flat,
-                                         plain_sweeps)
+                                         plain_sweeps, with_weights)
 from tpuflow3d_torch.solver import SolveTerms, parity_mask, sor_halfsweep as _plain
 
 
@@ -49,6 +52,7 @@ def sor_halfsweep_gc(du: torch.Tensor, t: SolveTerms, axis_alpha: tuple,
     CPU tensor."""
     if du.device.type == "cpu":
         parity = parity_mask(tuple(du.shape[1:]), ctx, du.device)
+        t = with_weights(t, axis_alpha[0], ctx)
         return _plain(du, t, omega, parity, color, ctx)
     require_cuda("sor_halfsweep_gc", du)
     if color not in (RED, BLACK):
@@ -67,7 +71,7 @@ def sor_gc_sweeps(du: torch.Tensor, t: SolveTerms, axis_alpha: tuple,
     if n < 0:
         raise ValueError(f"sor_gc_sweeps: n = {n}")
     if du.device.type == "cpu":
-        return plain_sweeps(du, t, omega, n, ctx)
+        return plain_sweeps(du, t, omega, n, ctx, axis_alpha[0])
     require_cuda("sor_gc_sweeps", du)
     if n == 0:
         return du

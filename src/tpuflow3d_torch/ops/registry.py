@@ -27,6 +27,7 @@ from tpuflow3d_torch.kernels import sor as _k_sor
 from tpuflow3d_torch.kernels import warp_grad as _k_warp_grad
 from tpuflow3d_torch.utils.roofline import (MEDIAN3_BYTES_PER_VOXEL,
                                             TERMS_BYTES_PER_VOXEL,
+                                            TERMS_GC_BYTES_PER_VOXEL,
                                             WARP_BYTES_PER_VOXEL,
                                             SweepByteModel)
 
@@ -143,8 +144,8 @@ _register(OpSpec(
         "packed layout (K4, K7: per half-sweep of the packed arrays, per "
         "voxel of the volume) and the general SPD system of gamma > 0 and "
         "multigrid (K6, K7), and the nonlinearity update that precedes "
-        "each inner iteration's sweeps (K8 on a whole volume with gamma = 0; "
-        "its plain version elsewhere).",
+        "each inner iteration's sweeps (K8 on a whole volume with gamma = 0, "
+        "K9 with gamma > 0 and SOR; their plain versions elsewhere).",
     byte_variants={
         "flat sweep (K1)": _solve_bytes(False),
         "flat sweep, bf16 terms": _solve_bytes(False, 2),
@@ -155,7 +156,9 @@ _register(OpSpec(
         "gc flat sweep, bf16 terms": _solve_bytes(False, 2, gc=True),
         "gc packed half-sweep (K7)": _solve_bytes(True, gc=True),
         "gc packed half-sweep, bf16 terms": _solve_bytes(True, 2, gc=True),
-        "nonlinearity update, rank-1 (K8)": float(TERMS_BYTES_PER_VOXEL)}))
+        "nonlinearity update, rank-1 (K8)": float(TERMS_BYTES_PER_VOXEL),
+        "nonlinearity update, general (K9)":
+            float(TERMS_GC_BYTES_PER_VOXEL)}))
 
 _register(OpSpec(
     name="median",

@@ -228,43 +228,34 @@ def rank1_terms(g: torch.Tensor, it: torch.Tensor, flow: torch.Tensor,
     return _rank1_parts(g, it, flow, du, p, ctx)[:3]
 
 
+def general_terms(g: torch.Tensor, it: torch.Tensor, flow: torch.Tensor,
+                  du: torch.Tensor, gc_g: torch.Tensor, gc_it: torch.Tensor,
+                  p: FlowParams, ctx: HaloCtx = HaloCtx()):
+    """(c, psi_s, ainv) of the general system (gamma > 0) at du, by
+    compute_terms' arithmetic: the plain version of K9
+    (``kernels/terms.py``)."""
+    t = _plain_terms(g, it, flow, du, p, ctx, (gc_g, gc_it))
+    return t.c, t.psi_s, t.ainv
+
+
 def terms_on_kernel(g: torch.Tensor, p: FlowParams, ctx: HaloCtx,
                     gc=None) -> bool:
-    """Whether compute_terms makes (c, psi_s, psi_d) with K8: the rank-1
-    system (gamma = 0) of a whole volume (no window, no Z neighbours) on
-    the kernel route, for the consumers that read only (c, g, psi_s,
-    psi_d): the SOR sweeps (K1, K4) and the multigrid hierarchy. Jacobi
-    sweeps plain, which reads the weights."""
-    return (gc is None and p.solver in ("sor", "multigrid")
-            and not ctx.is_window and ctx.is_whole(g.shape[-3])
-            and use_kernels(p, g))
+    """Whether compute_terms makes the system with a kernel: a whole volume
+    (no window, no Z neighbours) on the kernel route, for the consumers
+    that read only what the kernel makes. K8 makes (c, psi_s, psi_d) of
+    the rank-1 system (gamma = 0) for the SOR sweeps (K1, K4) and the
+    multigrid hierarchy; K9 (c, psi_s, ainv) of the general one (gamma >
+    0) for the SOR sweeps (K6, K7). Jacobi sweeps plain, which reads the
+    weights, and the multigrid hierarchy of gamma > 0 reads d6."""
+    solvers = ("sor",) if gc is not None else ("sor", "multigrid")
+    return (p.solver in solvers and not ctx.is_window
+            and ctx.is_whole(g.shape[-3]) and use_kernels(p, g))
 
 
-def compute_terms(g: torch.Tensor, it: torch.Tensor, flow: torch.Tensor,
-                  du: torch.Tensor, p: FlowParams,
-                  ctx: HaloCtx = HaloCtx(), gc=None) -> SolveTerms:
-    """Nonlinearity update: recompute psi' weights and RHS constants for the
-    current increment estimate.
-
-    ``gc``: (gc_g, gc_it) from ``derivatives.grad_constancy_terms``,
-    required exactly when p.gamma > 0. It adds gamma*psi_g * sum_a h_a
-    h_a^T to the point system, whose exact symmetric inverse is then
-    precomputed (``ainv``) together with the data block (``d6``).
-
-    Where ``terms_on_kernel`` says so, K8 makes (c, psi_s, psi_d) in one
-    launch and w, sw_inv and smt are None: every consumer there remakes
-    the weights from psi_s."""
-    if (p.gamma > 0.0) != (gc is not None):
-        raise ValueError("gamma > 0 requires grad_constancy_terms (and "
-                         "vice versa)")
-    # Storage-only downcast of the sweep constants c and g, at the end as
-    # in the reference: smt, ainv and d6 are those of the unrounded g.
-    store = getattr(torch, p.terms_dtype)
-    if terms_on_kernel(g, p, ctx, gc):
-        from tpuflow3d_torch.kernels.terms import terms_rank1
-        c, psi_s, psi_d = terms_rank1(g, it, flow, du, p, ctx)
-        return SolveTerms(c=c.to(store), g=g.to(store), w=None, sw_inv=None,
-                          smt=None, psi_s=psi_s, psi_d=psi_d)
+def _plain_terms(g, it, flow, du, p: FlowParams, ctx: HaloCtx,
+                 gc) -> SolveTerms:
+    """compute_terms' plain arithmetic, c and g not yet stored as
+    p.terms_dtype."""
     c, psi_s, psi_d, w_dirs, sw = _rank1_parts(g, it, flow, du, p, ctx)
     sw_inv = 1.0 / sw
     q = psi_d * (g * g).sum(0)
@@ -275,7 +266,8 @@ def compute_terms(g: torch.Tensor, it: torch.Tensor, flow: torch.Tensor,
         # Gradient constancy: one robust penalizer over the summed per-axis
         # derivative residuals r_a = gc_it[a] + gc_g[a].du, weighted by
         # gamma; A = sw*I + psi_d g g^T + psi_g sum_a h_a h_a^T. Traced as
-        # ``tf3d.gc.terms``, its voxels counted in ``gc.terms_voxels``.
+        # ``tf3d.gc.terms``, its voxels counted in ``gc.terms_voxels`` (as
+        # K9's launch is, where it takes the branch's place).
         with profiling.span("tf3d.gc.terms"):
             profiling.count("gc.terms_voxels", psi_d.numel())
             gc_g, gc_it = gc
@@ -291,9 +283,42 @@ def compute_terms(g: torch.Tensor, it: torch.Tensor, flow: torch.Tensor,
                               d_entry(1, 1), d_entry(1, 2), d_entry(2, 2)])
             ainv = _sym3_inverse(d6[0] + sw, d6[1], d6[2],
                                  d6[3] + sw, d6[4], d6[5] + sw)
-    return SolveTerms(c=c.to(store), g=g.to(store), w=w_dirs,
-                      sw_inv=sw_inv, smt=smt, psi_s=psi_s, psi_d=psi_d,
-                      ainv=ainv, d6=d6)
+    return SolveTerms(c=c, g=g, w=w_dirs, sw_inv=sw_inv, smt=smt,
+                      psi_s=psi_s, psi_d=psi_d, ainv=ainv, d6=d6)
+
+
+def compute_terms(g: torch.Tensor, it: torch.Tensor, flow: torch.Tensor,
+                  du: torch.Tensor, p: FlowParams,
+                  ctx: HaloCtx = HaloCtx(), gc=None) -> SolveTerms:
+    """Nonlinearity update: recompute psi' weights and RHS constants for the
+    current increment estimate.
+
+    ``gc``: (gc_g, gc_it) from ``derivatives.grad_constancy_terms``,
+    required exactly when p.gamma > 0. It adds gamma*psi_g * sum_a h_a
+    h_a^T to the point system, whose exact symmetric inverse is then
+    precomputed (``ainv``) together with the data block (``d6``).
+
+    Where ``terms_on_kernel`` says so, one launch makes the system: K8 (c,
+    psi_s, psi_d), or with gc K9 (c, psi_s, ainv), and w, sw_inv and smt
+    (with gc psi_d and d6 too) are None: every consumer there remakes the
+    weights from psi_s."""
+    if (p.gamma > 0.0) != (gc is not None):
+        raise ValueError("gamma > 0 requires grad_constancy_terms (and "
+                         "vice versa)")
+    # Storage-only downcast of the sweep constants c and g, at the end as
+    # in the reference: smt, ainv and d6 are those of the unrounded g.
+    store = getattr(torch, p.terms_dtype)
+    if terms_on_kernel(g, p, ctx, gc):
+        from tpuflow3d_torch.kernels import terms as kterms
+        if gc is None:
+            c, psi_s, psi_d = kterms.terms_rank1(g, it, flow, du, p, ctx)
+            return SolveTerms(c=c.to(store), g=g.to(store), w=None,
+                              sw_inv=None, smt=None, psi_s=psi_s, psi_d=psi_d)
+        c, psi_s, ainv = kterms.terms_general(g, it, flow, du, *gc, p, ctx)
+        return SolveTerms(c=c.to(store), g=g.to(store), w=None, sw_inv=None,
+                          smt=None, psi_s=psi_s, ainv=ainv)
+    t = _plain_terms(g, it, flow, du, p, ctx, gc)
+    return t._replace(c=t.c.to(store), g=g.to(store))
 
 
 def _du_star(du: torch.Tensor, t: SolveTerms, ctx: HaloCtx) -> torch.Tensor:

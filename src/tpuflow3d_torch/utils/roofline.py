@@ -62,7 +62,8 @@ FP32_FLOPS = {
 OPS = {"sor_halfsweep": (86, "fp32"), "sor_packed": (86, "fp32"),
        "sor_gc": (72, "fp32"), "sor_gc_packed": (72, "fp32"),
        "warp_grad": (40, "fp32"), "warp_grad_tricubic": (265, "fp32"),
-       "median3": (39, "minmax"), "terms": (130, "fp32")}
+       "median3": (39, "minmax"), "terms": (130, "fp32"),
+       "terms_gc": (270, "fp32")}
 # What csrc/median3.cu's selection network executes per output value: min
 # and max instructions of the separable network (sorted rows, merged 3x3
 # blocks shared by two rows and three planes, one merge of two planes shared
@@ -87,6 +88,12 @@ MEDIAN3_BYTES_PER_VOXEL = 24
 # 9, flow + du 3, psi_s 38 (three central differences of three components
 # squared and summed), the six weights 18, the neighbour sums 54, c 8.
 TERMS_BYTES_PER_VOXEL = 12 + 4 + 12 + 12 + 12 + 4 + 4
+# The general system's update (K9, gamma > 0): gc_g (36) and gc_it (12)
+# read beside K8's inputs, c (12), psi_s and ainv (24) written. Its 270
+# operations a voxel: K8's 130, the residuals r_g 18, psi_g 8, the
+# gradient-constancy part of c 21, d 54, sw 6, m's diagonal 3, the
+# cofactors 18, the determinant and its inverse 6, ainv 6.
+TERMS_GC_BYTES_PER_VOXEL = 12 + 4 + 12 + 12 + 36 + 12 + 12 + 4 + 24
 # csrc/probe.cu's min/max loop: compare-exchanges an iteration, x 2.
 MINMAX_PER_ITER = 30
 # The default footprint of the bandwidth probe, a side: 20x the H100's

@@ -2,8 +2,9 @@
 K2/K5 fused trilinear/tricubic warp + derivatives, K3 median, K6
 general-SPD SOR sweeps with the one-block form of the small multigrid
 levels, K4 and K7 the colour-packed half-sweeps, the bfloat16-terms
-instantiations of the four sweep kernels, and K8 the rank-1 nonlinearity
-update) against their plain PyTorch versions, on the card, and
+instantiations of the four sweep kernels, K8 the rank-1 nonlinearity
+update and K9 that of the general system) against their plain PyTorch
+versions, on the card, and
 compute_flow through the kernels against plain on the ladder, ``accurate``,
 gamma, packed, bfloat16 and order-4 paths. The streamed mode's window forms:
 K2/K5 and single-colour K1/K6 on window slabs (z0 below, at and inside the
@@ -601,6 +602,82 @@ def test_compute_terms_takes_the_kernel_on_a_whole_volume(dev):
     assert window.w is not None and kernels.LAUNCHES["terms"] == 1
 
 
+def _gc_fields(shape, dev, seed, du_zero=False):
+    """Random inputs of K9: g, it, flow, du, gc_g, gc_it."""
+    rng = np.random.default_rng(seed)
+    g = _t(rng.normal(size=(3, *shape)) * 0.1, dev)
+    it = _t(rng.normal(size=shape) * 0.05, dev)
+    flow = _t(rng.normal(size=(3, *shape)) * 0.5, dev)
+    du = (torch.zeros_like(flow) if du_zero
+          else _t(rng.normal(size=(3, *shape)) * 0.05, dev))
+    gc_g = _t(rng.normal(size=(3, 3, *shape)) * 0.1, dev)
+    gc_it = _t(rng.normal(size=(3, *shape)) * 0.05, dev)
+    return g, it, flow, du, gc_g, gc_it
+
+
+# K9's shapes: K8's but the volume of one voxel. There ATen's sum over the
+# three components of a (3, 1, 1, 1) tensor adds (x0 + x2) + x1, and on any
+# larger volume (x0 + x1) + x2 (200 random draws each on the H100), the
+# order the kernel repeats; the plain version's ainv then differs in its
+# last bit.
+TERMS_GC_SHAPES = [s for s in TERMS_SHAPES if s != (1, 1, 1)]
+
+
+@pytest.mark.parametrize("penalizer", ["charbonnier", "quadratic"])
+@pytest.mark.parametrize("du_zero", [True, False])
+@pytest.mark.parametrize("shape", TERMS_GC_SHAPES)
+def test_terms_gc_kernel_is_bitwise_its_plain_version(dev, shape, du_zero,
+                                                      penalizer):
+    from tpuflow3d_torch.kernels.terms import terms_general
+    from tpuflow3d_torch.solver import general_terms
+    fields = _gc_fields(shape, dev, sum(shape), du_zero)
+    p = FlowParams(alpha=ALPHA, gamma=1.5, penalizer_data=penalizer,
+                   penalizer_smooth=penalizer, penalizer_grad=penalizer)
+    kernels.reset_launches()
+    got = terms_general(*fields, p)
+    ref = general_terms(*fields, p)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["terms_gc"] == 1
+    assert kernels.LAUNCHES["terms"] == 0
+    for a, b in zip(got, ref):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+def test_terms_gc_kernel_refuses_what_it_does_not_take(dev):
+    from tpuflow3d_torch.kernels.terms import terms_general
+    g, it, flow, du, gc_g, gc_it = _gc_fields((6, 8, 8), dev, 0)
+    p = FlowParams(gamma=1.0)
+    with pytest.raises(ValueError, match="whole volume"):
+        terms_general(g, it, flow, du, gc_g, gc_it, p,
+                      HaloCtx(window_z0=0, window_d_global=6))
+    with pytest.raises(ValueError, match="gc_g: shape"):
+        terms_general(g, it, flow, du, gc_g[0], gc_it, p)
+    with pytest.raises(TypeError, match="float32"):
+        terms_general(g, it, flow, du, gc_g.double(), gc_it, p)
+
+
+def test_compute_terms_takes_the_gc_kernel_on_a_whole_volume(dev):
+    """With gamma > 0 and SOR compute_terms makes (c, psi_s, ainv) with
+    K9 on a whole volume (no weights, psi_d or d6 kept), bitwise the plain
+    route's; multigrid and a window stay plain."""
+    g, it, flow, du, gc_g, gc_it = _gc_fields((9, 20, 24), dev, 2)
+    p = FlowParams(alpha=ALPHA, gamma=1.0)
+    kernels.reset_launches()
+    t = compute_terms(g, it, flow, du, p, gc=(gc_g, gc_it))
+    ref = compute_terms(g, it, flow, du, p.replace(backend="plain"),
+                        gc=(gc_g, gc_it))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["terms_gc"] == 1
+    assert t.w is None and t.psi_d is None and t.d6 is None
+    for f in ("c", "g", "psi_s", "ainv"):
+        assert torch.equal(_bits(getattr(t, f)), _bits(getattr(ref, f)))
+    for q, ctx in ((p.replace(solver="multigrid"), HaloCtx()),
+                   (p, HaloCtx(window_z0=0, window_d_global=9))):
+        plain = compute_terms(g, it, flow, du, q, ctx, gc=(gc_g, gc_it))
+        assert plain.w is not None and plain.d6 is not None
+    assert kernels.LAUNCHES["terms_gc"] == 1
+
+
 # name -> (params at 32^3, the kernels its path must launch); every other
 # counter must stay at 0.
 PATHS = {
@@ -613,7 +690,7 @@ PATHS = {
                        {"warp_grad_tricubic", "sor_gc", "median3"}),
     "gamma": (FlowParams(levels=2, warps=3, inner_iterations=3, sweeps=20,
                          gamma=1.0),
-              {"warp_grad", "sor_gc", "median3"}),
+              {"warp_grad", "sor_gc", "median3", "terms_gc"}),
     "packed": (FlowParams(levels=2, warps=3, inner_iterations=3, sweeps=20,
                           sweep_layout="packed"),
                {"sor_packed", "warp_grad", "median3", "terms"}),
@@ -624,7 +701,8 @@ PATHS = {
     "packed_gamma_bf16": (FlowParams(levels=2, warps=3, inner_iterations=3,
                                      sweeps=20, sweep_layout="packed",
                                      gamma=1.0, terms_dtype="bfloat16"),
-                          {"sor_gc_packed", "warp_grad", "median3"}),
+                          {"sor_gc_packed", "warp_grad", "median3",
+                           "terms_gc"}),
     "ladder_bf16": (FlowParams(levels=2, warps=3, inner_iterations=3,
                                sweeps=20, terms_dtype="bfloat16"),
                     {"sor_halfsweep", "warp_grad", "median3", "terms"}),

@@ -260,7 +260,7 @@ def test_every_entry_point_is_declared_and_counted():
     assert entries == set(kernels._SIGNATURES)
     assert set(kernels.LAUNCHES) == {
         "sor_halfsweep", "warp_grad", "median3", "warp_grad_tricubic",
-        "sor_gc", "sor_packed", "sor_gc_packed", "terms"}
+        "sor_gc", "sor_packed", "sor_gc_packed", "terms", "terms_gc"}
 
 
 def test_kernels_build_without_fma_contraction(monkeypatch):

@@ -26,9 +26,10 @@ then:
 - in core with gamma > 0: the graphs dropped, one pair of the eager
   solve (``pipeline.compute_flow_impl``, the volumes already on the
   device) profiled with the tracer on, whose spans open where a replay's
-  do not: ``gc_plain_share``, the device seconds of the kernels launched
-  inside ``tf3d.gc.*`` spans (``gc_terms``' derivatives and
-  ``compute_terms``' gradient-constancy branch, all plain PyTorch) over
+  do not: ``gc_plain_share``, the device seconds of the plain kernels
+  launched inside ``tf3d.gc.*`` spans (``gc_terms``' derivatives, and
+  ``compute_terms``' gradient-constancy branch where it runs plain; K9,
+  which makes the system there on a whole volume, is left out) over
   the pair's device seconds, each kernel placed by the host event its
   link (a) names (link (b), its runtime launch, where that covers more),
   and the pair's counters (``gc.derivs_voxels``, ``gc.terms_voxels``)
@@ -71,6 +72,9 @@ from tpuflow3d_torch.utils import profiling  # noqa: E402
 # plain_ops_share's pattern of the program's own kernels.
 CSRC = re.compile(r"tf3d_sweep::|warp_grad_kernel<|median3_kernel\(|"
                   r"sor_halfsweep_packed_kernel|sor_halfsweep_gc_packed_kernel")
+# The nonlinearity-update kernels (K8, K9), which plain_ops_share's
+# pattern lacks: K9 runs inside ``tf3d.gc.terms``.
+TERMS_KERNELS = re.compile(r"tf3d_terms::")
 # Host events of the profiler's own work, not the program's.
 PROFILER_OWN = ("Activity Buffer Request", "Buffer Flush")
 PYRAMID = ("prep", "up")
@@ -268,7 +272,8 @@ def profiled(solve, pairs, on: bool):
 
 
 def gc_split(host, dev, span) -> dict:
-    """The eager pair's device time inside the ``tf3d.gc.*`` spans."""
+    """The eager pair's device time of the plain kernels inside the
+    ``tf3d.gc.*`` spans."""
     s0, s1 = span
     dev = [d for d in dev if d[2] > s0 and d[1] < s1]
     spans = Spans([h for h in host if h[0].startswith(GC)])
@@ -286,7 +291,7 @@ def gc_split(host, dev, span) -> dict:
     inside = {}
     for d, h in zip(kernels, links[link]):
         sp = h and spans.at(h[1])
-        if sp:
+        if sp and not TERMS_KERNELS.search(d[0]):
             inside[sp[0]] = inside.get(sp[0], 0.0) + (d[2] - d[1]) * 1e-9
     return {"device_s": all_s, "kernel_s": kernel_s, "links": cover,
             "link": link, "gc_device_s": inside,
