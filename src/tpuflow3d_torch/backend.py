@@ -42,11 +42,11 @@ def unsupported(p: FlowParams) -> list[str]:
             f"dtype (it documents no other and has no test or record of "
             f"one), and every kernel computes in float32; bfloat16 is "
             f"served as storage of the sweep constants, "
-            f"terms_dtype='bfloat16' (ROADMAP queue 1, item 5)")
+            f"terms_dtype='bfloat16'")
     if p.terms_dtype not in ("float32", "bfloat16"):
         missing.append(
             f"terms_dtype={p.terms_dtype!r}: the sweep kernels read c and "
-            f"g stored in float32 or bfloat16 (ROADMAP queue 1, item 5)")
+            f"g stored in float32 or bfloat16")
     return missing
 
 

@@ -1,35 +1,22 @@
-"""Compiled dispatch: the one-device in-core solve and the streamed
-out-of-core mode's slab phases captured into CUDA graphs and replayed.
+"""Compiled dispatch: the runners that run a segment of the solve, replayed
+from the CUDA graph it was captured into once, or called directly.
 
 Counterpart of the compiled programs of ``tpuflow3d.pipeline``
 (``_compute_flow_jit``, ``_prep_fn_cached``, ``_warp_fn_cached``,
 ``_upsample_fn_cached``, ``_level_fn_cached``). There the whole
 coarse-to-fine solve is one program; PyTorch launches each operation from
-the host, so ``compute_flow`` and ``compute_flow_checkpointed`` on a CUDA
-device capture the solve once, in segments, into CUDA graphs and then
-replay them. The segments:
-
-- ``prep``: normalise, presmooth, both pyramids;
-- per level, one warp iteration (``pipeline.warp_iteration``), replayed
-  ``warps`` times;
-- per level, the flow upsampled to the next level and clamped.
-
-With ``residual_tol`` > 0 the early stop reads the mean update on the host
-after each sweep (V-cycle), as the eager solve does, so the solve stops at
-the same sweep; a warp iteration then splits at each read:
-
-- ``pre``: warp, derivatives, gradient-constancy terms, the first
-  nonlinearity update (``solver.inner_system``: ``compute_terms``, and
-  ``build_mg_levels`` for multigrid or the packing for the packed layout);
-- ``terms``: the nonlinearity update of inner iterations k >= 1;
-- ``body``: one sweep (V-cycle) and its mean update (``solver.relax_step``),
-  replayed up to ``sweeps`` (``mg_cycles``) times, the stop test read after
-  each replay;
-- ``post``: median, accumulate, clamp (``pipeline.accumulate``).
-
-On the CPU (any device but CUDA) the same segment functions run directly,
-one after another, and give the eager ``pipeline.compute_flow_impl``'s
-bits, which the tests hold.
+the host, so the in-core level loop (``pipeline.drive``, which owns the
+segments and their order) runs each segment through a runner:
+``run(key, fn, args, carry)`` runs ``fn`` on ``args`` and returns its
+results, a graph's with each that ``carry`` gives a tensor for copied into
+that tensor, and ``run.zeros(key, ...)`` gives a tensor a graph keeps
+between calls. This module knows nothing of what a segment computes
+(but for ``_warp``, below). ``solve`` picks the runner of the volumes'
+device: on a CUDA device the in-core entry of the call's key, which
+captures each segment at its first call and replays it after; elsewhere
+``Direct``, which calls the segments one after another
+(``pipeline.compute_flow_impl`` takes ``Direct`` on any device: the
+Z-sharded ranks, and the witness a graphed solve is held to).
 
 A cache entry is keyed by (params, the padded global shape, the device,
 whether residuals are tracked) and holds the captured graphs, the static
@@ -81,8 +68,7 @@ on the CPU, as the card's graphs read them, with Python ints eagerly on
 the card.
 
 Capturing an entry (of either kind) with a new key drops every other entry
-on that device first; ``clear`` drops them on request. The Z-sharded ranks
-stage their exchanges through host memory and are not graphed.
+on that device first; ``clear`` drops them on request.
 """
 
 from __future__ import annotations
@@ -97,160 +83,30 @@ from typing import NamedTuple
 import torch
 from torch.utils import _pytree as pytree
 
-from tpuflow3d_torch import checkpoint as ckpt
 from tpuflow3d_torch import kernels
-from tpuflow3d_torch.grid import HaloCtx
 from tpuflow3d_torch.params import FlowParams
-from tpuflow3d_torch.pipeline import (accumulate, gc_terms, prepare_pyramids,
-                                     warp_and_derivatives, warp_iteration)
-from tpuflow3d_torch.pyramid import upsample_flow
-from tpuflow3d_torch.solver import (inner_steps, inner_system, iterate_du,
-                                    parity_mask, relax_step)
 from tpuflow3d_torch.utils import profiling
-from tpuflow3d_torch.utils.profiling import PhaseTimer
 
-_CTX = HaloCtx()
-
-
-# ---- the segments: functions of tensors, each returning a tuple ----
-
-def _prep(i0, i1, p: FlowParams):
-    pyr0, pyr1, _ = prepare_pyramids(i0, i1, p, _CTX)
-    return pyr0, pyr1
+# The warp segment on the whole volume, ``(i0l, i1l, flow, slot, p) ->
+# (flow,)``: ``pipeline`` sets it and its loop calls it from here, the
+# point where the benchmark's fault controls plant a warp that changes
+# nothing. Nothing in this module calls it.
+_warp = None
 
 
-def _warp(i0l, i1l, flow, slot, p: FlowParams):
-    parity = parity_mask(tuple(i0l.shape), _CTX, i0l.device)
-    return (warp_iteration(i0l, i1l, flow, p, _CTX, parity, slot),)
-
-
-def _upsample(flow, shape, p: FlowParams):
-    flow = upsample_flow(flow, shape, _CTX)
-    if p.flow_clamp > 0.0:
-        flow = flow.clamp(-p.flow_clamp, p.flow_clamp)
-    return (flow,)
-
-
-def _pre(i0l, i1l, flow, p: FlowParams):
-    g, it, i1w = warp_and_derivatives(i0l, i1l, flow, p, _CTX,
-                                      p.gamma > 0.0)
-    gc = gc_terms(i0l, i1w, g, p, _CTX)
-    parity = parity_mask(tuple(i0l.shape), _CTX, i0l.device)
-    step, state = inner_system(g, it, flow, torch.zeros_like(flow), p, _CTX,
-                               parity, gc)
-    return g, it, gc, step, state
-
-
-def _terms(g, it, flow, state, gc, p: FlowParams):
-    parity = parity_mask(tuple(it.shape), _CTX, it.device)
-    return inner_system(g, it, flow, iterate_du(state, _CTX), p, _CTX,
-                        parity, gc)
-
-
-def _body(state, step, p: FlowParams):
-    return relax_step(step, state, p, _CTX)
-
-
-def _post(state, flow, p: FlowParams):
-    return (accumulate(flow, iterate_du(state, _CTX), p, _CTX),)
-
-
-# ---- the driver: the same on every device ----
-
-def solve(i0, i1, p: FlowParams, diagnostics: bool = False,
-          checkpoint_dir: str | None = None, timer=None):
-    """Coarse-to-fine solve of one-device volumes whose Z is already a
-    multiple of ``z_multiple``, by segments: replayed from CUDA graphs on a
-    CUDA device, called directly elsewhere. Returns (flow, residuals): the
-    flow a tensor of the caller's own (a clone on CUDA), residuals the
-    (levels, warps, inner*sweeps) curves when ``diagnostics`` and
-    ``p.track_residuals``, else None. ``checkpoint_dir`` and ``timer`` as in
-    ``pipeline.compute_flow_impl``: checkpoints are saved and the phases
-    timed between replays, never inside a capture."""
-    track = diagnostics and p.track_residuals
+def solve(loop, i0, i1, p: FlowParams, track: bool):
+    """``loop(run, i0, i1, p, track=track)`` (``pipeline.drive`` with its
+    other arguments bound) through the runner of the volumes' device: on a
+    CUDA device the entry of (p, shape, device, track), the volumes copied
+    into its static inputs and the flow cloned out of it; elsewhere
+    ``Direct``. Returns the loop's (flow, residuals). The benchmark's
+    fault controls wrap this function."""
     if i0.device.type != "cuda":
-        return drive(_Direct(), i0, i1, p, track, checkpoint_dir, timer)
+        return loop(Direct(), i0, i1, p, track=track)
     with torch.cuda.device(i0.device):
         run = _entry(p, tuple(i0.shape), i0.device, track)
-        flow, residuals = drive(run, *run.inputs(i0, i1), p, track,
-                                checkpoint_dir, timer)
+        flow, residuals = loop(run, *run.inputs(i0, i1), p, track=track)
         return flow.clone(), residuals
-
-
-def drive(run, i0, i1, p: FlowParams, track: bool = False,
-          checkpoint_dir: str | None = None, timer=None):
-    """``solve``'s level loop through ``run(key, fn, args, carry)``, which
-    runs segment ``fn`` on ``args`` (replaying the graph of ``key``, or
-    calling ``fn``) and copies each result that ``carry`` gives a tensor
-    for into that tensor; ``run.zeros`` gives the static tensors the loop
-    keeps between calls. Returns (the finest level's flow, residuals)."""
-    phase = PhaseTimer.maybe(timer)
-    shapes = p.level_shapes(tuple(i0.shape))
-    dtype, dev = getattr(torch, p.dtype), i0.device
-    with phase("pyramids", sync=True):
-        pyr0, pyr1 = run(("prep",), functools.partial(_prep, p=p), (i0, i1))
-    n_levels = len(shapes)
-    residuals = (torch.zeros((n_levels, p.warps,
-                              p.inner_iterations * p.sweeps),
-                             dtype=dtype, device=dev) if track else None)
-    flows = [run.zeros(("flow", li), (3, *shapes[li]), dtype, dev)
-             for li in range(n_levels)]
-    start = n_levels - 1
-    state = (None if checkpoint_dir is None
-             else ckpt.resume_state(checkpoint_dir, shapes, _CTX, dev))
-    if state is not None:
-        start = state[1]
-        flows[start].copy_(torch.as_tensor(state[0], dtype=dtype,
-                                           device=dev))
-    else:
-        flows[start].zero_()
-    for li in range(start, -1, -1):
-        with phase(f"level{li} {shapes[li]}", sync=True):
-            _solve_level(run, pyr0[li], pyr1[li], flows[li], li, p,
-                         residuals)
-            if li > 0:
-                run(("up", li), functools.partial(
-                    _upsample, shape=shapes[li - 1], p=p), (flows[li],),
-                    carry=(flows[li - 1],))
-        if checkpoint_dir is not None and li > 0:
-            with phase(f"checkpoint L{li - 1}"):
-                ckpt.save_level_checkpoint(checkpoint_dir, flows[li - 1],
-                                           li - 1, p, z0=0,
-                                           d_global=shapes[li - 1][0])
-    return flows[0], residuals
-
-
-def _solve_level(run, i0l, i1l, flow, li: int, p: FlowParams, residuals):
-    """The warp iterations of one level on its static flow: one segment
-    each, or, with the early stop, pre / (terms, body...) / post."""
-    if p.residual_tol <= 0.0:
-        slot = (None if residuals is None else
-                run.zeros(("slot", li), residuals.shape[-1:],
-                          residuals.dtype, residuals.device))
-        warp = functools.partial(_warp, p=p)
-        for wi in range(p.warps):
-            run(("warp", li), warp, (i0l, i1l, flow, slot), carry=(flow,))
-            if slot is not None:
-                residuals[li, wi].copy_(slot)
-        return
-    pre, terms, body, post = (functools.partial(f, p=p)
-                              for f in (_pre, _terms, _body, _post))
-    for wi in range(p.warps):
-        g, it, gc, step, state = run(("pre", li), pre, (i0l, i1l, flow))
-        for k in range(p.inner_iterations):
-            if k:
-                run(("terms", li), terms, (g, it, flow, state, gc),
-                    carry=(step, state))
-            # The sweeps (V-cycles) and the host read of each stop test.
-            with profiling.span("tf3d.early_stop"):
-                for s in range(inner_steps(p)):
-                    _, r, more = run(("body", li), body, (state, step),
-                                     carry=(state, None, None))
-                    if residuals is not None:
-                        residuals[li, wi, k * p.sweeps + s] = r
-                    if not bool(more):
-                        break
-        run(("post", li), post, (state, flow), carry=(flow,))
 
 
 def _copy_tree(dst, src) -> None:
@@ -279,13 +135,15 @@ def _span_name(segment: str) -> str:
     return f"tf3d.replay.{segment}"
 
 
-class _Direct:
-    """The segments called one after another (a device without graphs)."""
+class Direct:
+    """The segments called one after another: a device without graphs, the
+    Z-sharded ranks, the eager witness. A result is returned as the
+    segment made it (``carry`` names tensors only a graph keeps), so what
+    the loop no longer holds is freed at once."""
 
     def __call__(self, key, fn, args, carry=None):
         with profiling.span(_span_name(key[0])):
-            outs = fn(*args)
-        return _carried(outs, carry)
+            return fn(*args)
 
     def zeros(self, key, shape, dtype, device):
         return torch.zeros(shape, dtype=dtype, device=device)

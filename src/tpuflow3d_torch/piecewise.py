@@ -56,8 +56,8 @@ the phases run directly with the origins in 0-d tensors, the arithmetic
 the graphs replay; ``eager=True`` runs them directly on the card with
 Python ints (the witness a graphed run is held to, bitwise).
 
-Scale note: this is the one-device overflow path; a Z-sharded mesh
-(ROADMAP queue 1, item 10) keeps everything resident instead.
+Scale note: this is the one-device overflow path; a Z-sharded run
+(``sharding.py``) keeps everything resident instead.
 """
 
 from __future__ import annotations

@@ -4,11 +4,31 @@ Port of ``tpuflow3d.pipeline``: normalize -> presmooth ->
 build pyramids -> per level (coarse to fine) ``warps`` times: warp +
 derivatives -> inner solve -> median -> accumulate -> clamp; upsample
 between levels. The reference's ``fori_loop``s are Python loops.
-``compute_flow_impl`` is the eager driver (the Z-sharded ranks and the
-streamed mode use it); ``compute_flow`` and ``compute_flow_checkpointed``
-run the same solve by segments (``graphs.py``), on a CUDA device captured
-once into CUDA graphs and replayed, as the reference compiles its solve
-once. On CUDA tensors (backend "auto" or "kernels") these run
+
+The level loop (``drive``) is written once, as segments:
+
+- ``prep``: normalise, presmooth, both pyramids;
+- per level, one warp iteration (``warp_iteration``), run ``warps`` times;
+- per level, the flow upsampled to the next level and clamped.
+
+With ``residual_tol`` > 0 the early stop reads the mean update on the host
+after each sweep (V-cycle), so a warp iteration splits at each read:
+
+- ``pre``: warp, derivatives, gradient-constancy terms, the first
+  nonlinearity update (``solver.inner_system``: ``compute_terms``, and
+  ``build_mg_levels`` for multigrid or the packing for the packed layout);
+- ``terms``: the nonlinearity update of inner iterations k >= 1;
+- ``body``: one sweep (V-cycle) and its mean update (``solver.relax_step``),
+  run up to ``sweeps`` (``mg_cycles``) times, the stop test read after
+  each;
+- ``post``: median, accumulate, clamp (``accumulate``).
+
+``drive`` runs them through a runner of ``graphs.py``: replayed from
+CUDA graphs by ``compute_flow`` and ``compute_flow_checkpointed`` on a
+CUDA device, as the reference compiles its solve once; called directly
+elsewhere, and by ``compute_flow_impl`` under any ``HaloCtx`` (each
+Z-sharded rank's slab, ``sharding.py``; the witness a graphed solve is
+held to). On CUDA tensors (backend "auto" or "kernels") they run
 hand-written kernels:
 
 - warp + derivatives: K2 (trilinear) or K5 (tricubic) with
@@ -18,27 +38,29 @@ hand-written kernels:
   with gamma > 0 K6 (flat) or K7 (packed); every multigrid level K6;
 - the median: K3.
 
-``compute_flow_checkpointed`` runs the same level loop and saves the
-flow at each level boundary (``checkpoint.py``), so an interrupted run
-resumes where it stopped. The out-of-core mode, whose volumes stay in host
-memory, is ``piecewise.compute_flow_piecewise``; the Z-sharded mode runs
-``compute_flow_impl`` on each rank's slab under a sharded ``HaloCtx``
-(``sharding.compute_flow_sharded``).
+``compute_flow_checkpointed`` saves the flow at each level boundary
+(``checkpoint.py``), so an interrupted run resumes where it stopped. The
+out-of-core mode, whose volumes stay in host memory, is
+``piecewise.compute_flow_piecewise``.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
 from tpuflow3d_torch import checkpoint as ckpt
+from tpuflow3d_torch import graphs
 from tpuflow3d_torch.backend import check_supported, use_kernels
 from tpuflow3d_torch.derivatives import derivatives, grad_constancy_terms
 from tpuflow3d_torch.grid import HaloCtx
 from tpuflow3d_torch.median import median3_op
 from tpuflow3d_torch.params import FlowParams
 from tpuflow3d_torch.pyramid import build_pyramid, smooth, upsample_flow
-from tpuflow3d_torch.solver import parity_mask, solve_increment
+from tpuflow3d_torch.solver import (inner_steps, inner_system, iterate_du,
+                                    parity_mask, relax_step, solve_increment)
 from tpuflow3d_torch.utils import profiling
 from tpuflow3d_torch.utils.profiling import PhaseTimer
 from tpuflow3d_torch.warp import warp_volume
@@ -111,17 +133,6 @@ def accumulate(flow, du, p: FlowParams, ctx: HaloCtx):
     return flow
 
 
-def solve_level(i0l, i1l, flow, p: FlowParams, ctx: HaloCtx,
-                residuals_level=None):
-    """All warp iterations at one pyramid level; residuals go into
-    ``residuals_level`` (warps, inner*sweeps) in place when it is given."""
-    parity = parity_mask(tuple(i0l.shape), ctx, i0l.device)
-    for wi in range(p.warps):
-        slot = None if residuals_level is None else residuals_level[wi]
-        flow = warp_iteration(i0l, i1l, flow, p, ctx, parity, slot)
-    return flow
-
-
 def prepare_pyramids(i0, i1, p: FlowParams, ctx: HaloCtx):
     """Normalize + presmooth + build both pyramids (fine -> coarse)."""
     dtype = getattr(torch, p.dtype)
@@ -143,43 +154,103 @@ def prepare_pyramids(i0, i1, p: FlowParams, ctx: HaloCtx):
     return pyr0, pyr1, shapes
 
 
-def compute_flow_impl(i0, i1, p: FlowParams, ctx: HaloCtx,
-                      diagnostics: bool = False,
-                      checkpoint_dir: str | None = None, timer=None):
-    """Coarse-to-fine solve of (D, H, W) volumes whose Z is already a
-    multiple of ``z_multiple``. ``checkpoint_dir``: re-enter the level
-    loop at a checkpoint of this pyramid found there, and save the flow at
-    every level boundary (under a sharded ``ctx`` each rank reads and
-    writes its own slab, ``checkpoint.resume_state``). ``timer``: an
-    optional ``PhaseTimer``, given the pyramid build and each level (each
-    phase ends in a device synchronize)."""
-    phase = PhaseTimer.maybe(timer)
-    with phase("pyramids", sync=True):
-        pyr0, pyr1, shapes = prepare_pyramids(i0, i1, p, ctx)
-    dtype = getattr(torch, p.dtype)
+# ---- the level loop's segments: functions of tensors, each returning a
+# tuple (what a runner of ``graphs.py`` replays or calls) ----
 
+def _prep(i0, i1, p: FlowParams, ctx: HaloCtx):
+    pyr0, pyr1, _ = prepare_pyramids(i0, i1, p, ctx)
+    return pyr0, pyr1
+
+
+def _warp(i0l, i1l, flow, slot, p: FlowParams, ctx: HaloCtx):
+    parity = parity_mask(tuple(i0l.shape), ctx, i0l.device)
+    return (warp_iteration(i0l, i1l, flow, p, ctx, parity, slot),)
+
+
+def _upsample(flow, shape, p: FlowParams, ctx: HaloCtx):
+    flow = upsample_flow(flow, shape, ctx)
+    if p.flow_clamp > 0.0:
+        flow = flow.clamp(-p.flow_clamp, p.flow_clamp)
+    return (flow,)
+
+
+def _pre(i0l, i1l, flow, p: FlowParams, ctx: HaloCtx):
+    g, it, i1w = warp_and_derivatives(i0l, i1l, flow, p, ctx, p.gamma > 0.0)
+    gc = gc_terms(i0l, i1w, g, p, ctx)
+    parity = parity_mask(tuple(i0l.shape), ctx, i0l.device)
+    step, state = inner_system(g, it, flow, torch.zeros_like(flow), p, ctx,
+                               parity, gc)
+    return g, it, gc, step, state
+
+
+def _terms(g, it, flow, state, gc, p: FlowParams, ctx: HaloCtx):
+    parity = parity_mask(tuple(it.shape), ctx, it.device)
+    return inner_system(g, it, flow, iterate_du(state, ctx), p, ctx, parity,
+                        gc)
+
+
+def _body(state, step, p: FlowParams, ctx: HaloCtx):
+    return relax_step(step, state, p, ctx)
+
+
+def _post(state, flow, p: FlowParams, ctx: HaloCtx):
+    return (accumulate(flow, iterate_du(state, ctx), p, ctx),)
+
+
+# The whole-volume warp segment, which the loop reads from ``graphs``.
+graphs._warp = functools.partial(_warp, ctx=HaloCtx())
+
+
+# ---- the level loop ----
+
+def drive(run, i0, i1, p: FlowParams, ctx: HaloCtx, track: bool = False,
+          checkpoint_dir: str | None = None, timer=None):
+    """The coarse-to-fine solve of (D, H, W) volumes (this rank's slab
+    under a sharded ``ctx``) whose global Z is a multiple of
+    ``z_multiple``. ``run(key, fn, args, carry)`` runs segment ``fn`` on
+    ``args`` and returns its results (a graph's copied into the tensors
+    ``carry`` gives, made by ``run.zeros``): the loop goes on with them.
+    Returns (the finest level's flow, the (levels, warps, inner*sweeps)
+    residual curves with ``track``, else None).
+
+    ``checkpoint_dir``: re-enter the loop at a checkpoint of this pyramid
+    found there, and save the flow at every level boundary (under a
+    sharded ``ctx`` each rank reads and writes its own slab,
+    ``checkpoint.resume_state``). ``timer``: an optional ``PhaseTimer``,
+    given the pyramid build and each level (each phase ends in a device
+    synchronize). Both act between segments, never inside one."""
+    phase = PhaseTimer.maybe(timer)
+    shapes = p.level_shapes((ctx.d_global(i0.shape[-3]), *i0.shape[-2:]))
+    dtype, dev = getattr(torch, p.dtype), i0.device
+    with phase("pyramids", sync=True):
+        pyr0, pyr1 = run(("prep",), functools.partial(_prep, p=p, ctx=ctx),
+                         (i0, i1))
     n_levels = len(shapes)
-    track = diagnostics and p.track_residuals
     residuals = (torch.zeros((n_levels, p.warps,
                               p.inner_iterations * p.sweeps),
-                             dtype=dtype, device=i0.device)
-                 if track else None)
-
+                             dtype=dtype, device=dev) if track else None)
+    flows = [run.zeros(("flow", li), (3, *pyr.shape), dtype, dev)
+             for li, pyr in enumerate(pyr0)]
     start = n_levels - 1
-    flow = torch.zeros((3, *pyr0[-1].shape), dtype=dtype, device=i0.device)
     state = (None if checkpoint_dir is None
-             else ckpt.resume_state(checkpoint_dir, shapes, ctx, i0.device))
+             else ckpt.resume_state(checkpoint_dir, shapes, ctx, dev))
     if state is not None:
-        flow = torch.as_tensor(state[0], dtype=dtype, device=i0.device)
         start = state[1]
+        flows[start].copy_(torch.as_tensor(state[0], dtype=dtype,
+                                           device=dev))
+    else:
+        flows[start].zero_()
+    # Each level's tensor leaves the list as the level starts.
+    flow = flows[start]
+    del flows[start:]
     for li in range(start, -1, -1):
         with phase(f"level{li} {shapes[li]}", sync=True):
-            flow = solve_level(pyr0[li], pyr1[li], flow, p, ctx,
-                               residuals[li] if track else None)
+            flow = _solve_level(run, pyr0[li], pyr1[li], flow, li, p, ctx,
+                                residuals)
             if li > 0:
-                flow = upsample_flow(flow, shapes[li - 1], ctx)
-                if p.flow_clamp > 0.0:
-                    flow = flow.clamp(-p.flow_clamp, p.flow_clamp)
+                flow, = run(("up", li), functools.partial(
+                    _upsample, shape=shapes[li - 1], p=p, ctx=ctx),
+                    (flow,), carry=(flows.pop(),))
         if checkpoint_dir is not None and li > 0:
             # The saved state is "ready to solve level li-1".
             with phase(f"checkpoint L{li - 1}"):
@@ -187,7 +258,63 @@ def compute_flow_impl(i0, i1, p: FlowParams, ctx: HaloCtx,
                 ckpt.save_level_checkpoint(
                     checkpoint_dir, flow, li - 1, p, z0=ctx.z0(d_local),
                     d_global=ctx.d_global(d_local), group=ctx.group)
+    return flow, residuals
 
+
+def _solve_level(run, i0l, i1l, flow, li: int, p: FlowParams, ctx: HaloCtx,
+                 residuals):
+    """The warp iterations of one level on its flow: one segment each, or,
+    with the early stop, pre / (terms, body...) / post. Returns the
+    flow."""
+    if p.residual_tol <= 0.0:
+        slot = (None if residuals is None else
+                run.zeros(("slot", li), residuals.shape[-1:],
+                          residuals.dtype, residuals.device))
+        warp = (functools.partial(graphs._warp, p=p)
+                if ctx.is_whole(i0l.shape[-3])
+                else functools.partial(_warp, p=p, ctx=ctx))
+        for wi in range(p.warps):
+            flow, = run(("warp", li), warp, (i0l, i1l, flow, slot),
+                        carry=(flow,))
+            if slot is not None:
+                residuals[li, wi].copy_(slot)
+        return flow
+    pre, terms, body, post = (functools.partial(f, p=p, ctx=ctx)
+                              for f in (_pre, _terms, _body, _post))
+    for wi in range(p.warps):
+        g, it, gc, step, state = run(("pre", li), pre, (i0l, i1l, flow))
+        for k in range(p.inner_iterations):
+            if k:
+                step, state = run(("terms", li), terms,
+                                  (g, it, flow, state, gc),
+                                  carry=(step, state))
+            # The sweeps (V-cycles) and the host read of each stop test.
+            with profiling.span("tf3d.early_stop"):
+                for s in range(inner_steps(p)):
+                    state, r, more = run(("body", li), body, (state, step),
+                                         carry=(state, None, None))
+                    if residuals is not None:
+                        residuals[li, wi, k * p.sweeps + s] = r
+                    if not bool(more):
+                        break
+        flow, = run(("post", li), post, (state, flow), carry=(flow,))
+        # The warp's system dies here, before the next warp builds its own.
+        del g, it, gc, step, state
+    return flow
+
+
+def compute_flow_impl(i0, i1, p: FlowParams, ctx: HaloCtx,
+                      diagnostics: bool = False,
+                      checkpoint_dir: str | None = None, timer=None):
+    """Coarse-to-fine solve of (D, H, W) volumes whose Z is already a
+    multiple of ``z_multiple``: ``drive`` with the segments called
+    directly (``graphs.Direct``) under ``ctx``, on any device.
+    ``checkpoint_dir`` and ``timer`` as in ``drive``. Returns the flow,
+    and with ``diagnostics`` a dict holding the residual curves when
+    ``p.track_residuals``."""
+    track = diagnostics and p.track_residuals
+    flow, residuals = drive(graphs.Direct(), i0, i1, p, ctx, track,
+                            checkpoint_dir, timer)
     if diagnostics:
         return flow, ({"residuals": residuals} if track else {})
     return flow
@@ -244,6 +371,22 @@ def _pad_z(i0, i1, zm: int):
     return i0, i1
 
 
+def _in_core(i0, i1, params: FlowParams, device, track: bool, **loop):
+    """``compute_flow``'s and ``compute_flow_checkpointed``'s solve: the
+    pair placed and checked, Z edge-padded to ``z_multiple``, ``drive``
+    (one device, ``loop`` its checkpoint and timer) through the runner of
+    its device (``graphs.solve``), the flow cropped back. Returns (flow,
+    residuals)."""
+    i0, i1 = place_volumes(i0, i1, device)
+    check_supported(params, i0)
+    d = i0.shape[-3]
+    i0, i1 = _pad_z(i0, i1, params.z_multiple)
+    flow, residuals = graphs.solve(
+        functools.partial(drive, ctx=HaloCtx(), **loop), i0, i1, params,
+        track)
+    return flow[:, :d], residuals
+
+
 def compute_flow(i0, i1, params: FlowParams = FlowParams(), device=None,
                  diagnostics: bool = False):
     """Compute dense 3D optical flow s with I1(x + s(x)) ~= I0(x).
@@ -261,16 +404,11 @@ def compute_flow(i0, i1, params: FlowParams = FlowParams(), device=None,
     first call for a (params, shape, device) captures them, later calls
     replay them, and ``graphs.clear()`` releases them and their memory.
     """
-    from tpuflow3d_torch import graphs
-    i0, i1 = place_volumes(i0, i1, device)
-    check_supported(params, i0)
-    d = i0.shape[-3]
-    i0, i1 = _pad_z(i0, i1, params.z_multiple)
-    flow, residuals = graphs.solve(i0, i1, params, diagnostics)
+    track = diagnostics and params.track_residuals
+    flow, residuals = _in_core(i0, i1, params, device, track)
     if diagnostics:
-        return flow[:, :d], ({} if residuals is None
-                             else {"residuals": residuals})
-    return flow[:, :d]
+        return flow, ({} if residuals is None else {"residuals": residuals})
+    return flow
 
 
 def compute_flow_checkpointed(i0, i1, params: FlowParams = FlowParams(),
@@ -285,10 +423,5 @@ def compute_flow_checkpointed(i0, i1, params: FlowParams = FlowParams(),
     the pyramid build and each level. Device placement and the CUDA
     graphs as in ``compute_flow`` (the checkpoints are saved and the phases
     timed between replays); returns the (3, D, H, W) flow tensor."""
-    from tpuflow3d_torch import graphs
-    i0, i1 = place_volumes(i0, i1, device)
-    check_supported(params, i0)
-    d = i0.shape[-3]
-    i0, i1 = _pad_z(i0, i1, params.z_multiple)
-    return graphs.solve(i0, i1, params, checkpoint_dir=checkpoint_dir,
-                        timer=timer)[0][:, :d]
+    return _in_core(i0, i1, params, device, False,
+                    checkpoint_dir=checkpoint_dir, timer=timer)[0]

@@ -4,9 +4,10 @@ Port of ``tpuflow3d.sharding``. The volume is split along Z into one slab
 per rank; every stencil, warp and resample op takes its margin planes from
 the neighbouring ranks through the sharded ``grid.HaloCtx`` (point-to-point
 halo exchanges, an all-gather where a coarse slab is thinner than the
-halo), and the reductions are all-reduces. Each rank runs the one-device
-code, ``pipeline.compute_flow_impl``, on its slab under that context, as
-the reference runs the same function under ``shard_map``. The warp
+halo), and the reductions are all-reduces. Each rank runs the level loop
+of the one-device solve (``pipeline.drive``, its segments called directly
+through ``pipeline.compute_flow_impl``) on its slab under that context,
+as the reference runs the same function under ``shard_map``. The warp
 samples at global coordinates (``warp.warp_volume``), so a sharded flow
 is bitwise the one-device flow with the same ``prepare_params``.
 
@@ -105,7 +106,7 @@ def compute_flow_slab(i0l: torch.Tensor, i1l: torch.Tensor, p: FlowParams,
     """This rank's slab of the flow, (3, D/n, H, W) on the slabs' device,
     from its slabs of the two volumes (every rank calls it; ``p`` already
     through ``prepare_params``): ``pipeline.compute_flow_impl`` under the
-    rank's context."""
+    rank's context, the level loop the one-device solve replays."""
     check_supported(p, i0l)
     return compute_flow_impl(i0l, i1l, p, ctx, diagnostics, checkpoint_dir,
                              timer)

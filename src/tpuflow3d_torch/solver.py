@@ -28,9 +28,9 @@ and plain, and multigrid always smooths flat (K6).
 
 An inner iteration is a frozen system and its step (``inner_system``: a
 ``FlatSweep``, a ``PackedSweep`` or, for multigrid, an ``mgsolver.VCycle``)
-applied ``sweeps`` (``mg_cycles``) times by ``relax_steps``; the compiled
-dispatch (``graphs.py``) captures the same pieces, split where the early
-stop reads ``relax_step``'s test on the host.
+applied ``sweeps`` (``mg_cycles``) times by ``relax_steps``; the level
+loop (``pipeline.drive``) runs the same pieces as segments, split where
+the early stop reads ``relax_step``'s test on the host.
 
 ``terms_dtype="bfloat16"`` stores ``c`` and ``g`` in bfloat16 (storage
 only: every consumer widens them and computes in float32). ``SolveTerms``

@@ -1,25 +1,29 @@
 """The compiled dispatch (``tpuflow3d_torch.graphs``) on the CPU.
 
-On a CUDA device ``compute_flow`` and ``compute_flow_checkpointed`` replay
-the solve from CUDA graphs captured in segments; on the CPU the same
-segment functions run one after another. These tests hold, at 16^3-32^3:
+The level loop (``pipeline.drive``) runs the solve in segments through a
+runner: on a CUDA device ``compute_flow`` and ``compute_flow_checkpointed``
+replay them from CUDA graphs, on the CPU the same segment functions run
+one after another (``graphs.Direct``). The witness is the unsplit solve,
+written out in this file (``_reference``: per level ``warps`` times
+``pipeline.warp_iteration``, whose early stop is ``solver.relax_steps``,
+then the upsampling and the clamp). These tests hold, at 16^3-32^3:
 
 (a) no segment of the six paths (``ladder256``, gamma, ``packed``,
     ``packed_gamma``, ``accurate``, ``accurate-bf16``, at two levels and
     two warps) reads a tensor on the host or builds one from host data,
     which a capture cannot hold; a planted ``bool(tensor)`` or
     ``torch.tensor`` in a segment fails the check;
-(b) the segmented driver gives the eager ``compute_flow_impl``'s flow
-    bitwise, on the six cases of tests/test_pipeline.py;
+(b) the segmented loop gives the unsplit solve's flow bitwise, on the
+    six cases of tests/test_pipeline.py;
 (c) it is as close to ``tpuflow3d.compute_flow`` and to
     ``tpuflow3d.pipeline.compute_flow_checkpointed`` as the eager port
     (tests/test_torch_pipeline.py's tolerance: atol 5e-5, rtol 1e-4);
-(d) the early stop stops at the same sweep (V-cycle) as eager: with
-    ``track_residuals`` the curves are bitwise the eager ones;
+(d) the early stop stops at the same sweep (V-cycle) as the unsplit
+    solve: with ``track_residuals`` the curves are bitwise its ones;
 (e) a cache entry's bookkeeping, with the CUDA calls replaced so that a
     "capture" runs its work once with every static tensor restored after
     it and a "replay" runs it again (a graph's semantics on CPU tensors):
-    bitwise the eager flow, a second call captures nothing, a new shape
+    bitwise the unsplit flow, a second call captures nothing, a new shape
     drops the old entry, launches count replays only, and a graph called
     on other tensors than it was captured with raises.
 """
@@ -40,6 +44,8 @@ from tpuflow3d_torch import PRESETS, FlowParams, graphs, kernels, pipeline
 from tpuflow3d_torch import synthetic as syn
 from tpuflow3d_torch.grid import HaloCtx
 from tpuflow3d_torch.params import from_reference
+from tpuflow3d_torch.pyramid import upsample_flow
+from tpuflow3d_torch.solver import parity_mask
 
 torch.set_num_threads(2)
 
@@ -62,14 +68,32 @@ def _pair(shape, seed=0):
     return torch.from_numpy(i0), torch.from_numpy(i1)
 
 
-def _eager(i0, i1, p, diagnostics=False):
-    """The eager driver on the padded pair, cropped as compute_flow crops."""
-    d = i0.shape[0]
+def _reference(i0, i1, p, diagnostics=False):
+    """The unsplit solve on the padded pair, cropped as compute_flow crops:
+    per level, coarse to fine, ``warps`` times ``pipeline.warp_iteration``
+    (its early stop ``solver.relax_steps``), then the flow upsampled to
+    the next level and clamped."""
+    d, ctx = i0.shape[0], HaloCtx()
     i0p, i1p = pipeline._pad_z(i0.float(), i1.float(), p.z_multiple)
-    out = pipeline.compute_flow_impl(i0p, i1p, p, HaloCtx(), diagnostics)
+    pyr0, pyr1, shapes = pipeline.prepare_pyramids(i0p, i1p, p, ctx)
+    track = diagnostics and p.track_residuals
+    residuals = (torch.zeros((len(shapes), p.warps,
+                              p.inner_iterations * p.sweeps))
+                 if track else None)
+    flow = torch.zeros((3, *shapes[-1]))
+    for li in range(len(shapes) - 1, -1, -1):
+        parity = parity_mask(shapes[li], ctx, flow.device)
+        for wi in range(p.warps):
+            flow = pipeline.warp_iteration(
+                pyr0[li], pyr1[li], flow, p, ctx, parity,
+                residuals[li, wi] if track else None)
+        if li > 0:
+            flow = upsample_flow(flow, shapes[li - 1], ctx)
+            if p.flow_clamp > 0.0:
+                flow = flow.clamp(-p.flow_clamp, p.flow_clamp)
     if diagnostics:
-        return out[0][:, :d], out[1]
-    return out[:, :d]
+        return flow[:, :d], ({"residuals": residuals} if track else {})
+    return flow[:, :d]
 
 
 # ---- (a) no host reads and no host data inside a segment ----
@@ -87,7 +111,7 @@ class _NoHost(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-class _Checked(graphs._Direct):
+class _Checked(graphs.Direct):
     """The direct runner with every segment under ``_NoHost``."""
 
     def __init__(self):
@@ -103,7 +127,7 @@ class _Checked(graphs._Direct):
 def _checked_run(p, shape=(16, 16, 16)):
     i0, i1 = _pair(shape)
     run = _Checked()
-    flow, _ = graphs.drive(run, i0, i1, p)
+    flow, _ = pipeline.drive(run, i0, i1, p, HaloCtx())
     return run.segments, flow, i0, i1
 
 
@@ -114,27 +138,27 @@ def test_segments_make_no_host_reads(name):
     split = p.residual_tol > 0.0
     assert segments == ({"prep", "pre", "terms", "body", "post", "up"}
                         if split else {"prep", "warp", "up"})
-    assert torch.equal(flow, _eager(i0, i1, p))
+    assert torch.equal(flow, _reference(i0, i1, p))
 
 
 @pytest.mark.parametrize("plant", ["bool", "tensor"])
 @pytest.mark.parametrize("name", ["ladder256", "accurate"])
 def test_a_planted_host_read_fails_the_check(monkeypatch, name, plant):
-    real = graphs._upsample
+    real = pipeline._upsample
 
-    def planted(flow, shape, p):
+    def planted(flow, shape, p, ctx):
         if plant == "bool":
             bool(flow.abs().max() > 0)
         else:
             torch.tensor([1.0, 2.0])
-        return real(flow, shape, p)
+        return real(flow, shape, p, ctx)
 
-    monkeypatch.setattr(graphs, "_upsample", planted)
+    monkeypatch.setattr(pipeline, "_upsample", planted)
     with pytest.raises(AssertionError, match="host read or host data"):
         _checked_run(PATHS[name])
 
 
-# ---- (b) the segmented driver is the eager driver, bitwise ----
+# ---- (b) the segmented loop is the unsplit solve, bitwise ----
 
 P24 = FlowParams(levels=2, scale_factor=0.5, warps=2, inner_iterations=3,
                  sweeps=20, alpha=0.05)
@@ -164,7 +188,7 @@ def test_segmented_flow_is_the_eager_flow(name):
     i0, i1 = torch.from_numpy(i0), torch.from_numpy(i1)
     got = pipeline.compute_flow(i0, i1, p, device="cpu")
     assert got.shape == (3, *shape)
-    assert torch.equal(got, _eager(i0, i1, p))
+    assert torch.equal(got, _reference(i0, i1, p))
 
 
 # ---- (c) the JAX package's flow, as close as the eager port ----
@@ -192,11 +216,11 @@ def test_segmented_flow_matches_the_reference(name, checkpointed, tmp_path):
         ref = ref_compute_flow(i0, i1, rp)
         got = pipeline.compute_flow(i0, i1, p, device="cpu")
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
-    eager = _eager(torch.from_numpy(i0), torch.from_numpy(i1), p)
-    assert torch.equal(got, eager)
+    unsplit = _reference(torch.from_numpy(i0), torch.from_numpy(i1), p)
+    assert torch.equal(got, unsplit)
 
 
-# ---- (d) the early stop stops where eager stops ----
+# ---- (d) the early stop stops where the unsplit solve stops ----
 
 EARLY = {
     "sor": P24.replace(residual_tol=2e-3),
@@ -212,7 +236,7 @@ def test_early_stop_residual_curves_are_the_eager_ones(name):
     i0, i1 = _pair(S24)
     got, gdiag = pipeline.compute_flow(i0, i1, p, device="cpu",
                                        diagnostics=True)
-    want, wdiag = _eager(i0, i1, p, diagnostics=True)
+    want, wdiag = _reference(i0, i1, p, diagnostics=True)
     assert torch.equal(got, want)
     res = gdiag["residuals"]
     assert torch.equal(res, wdiag["residuals"])
@@ -282,14 +306,15 @@ def recorded(monkeypatch):
 
 def _entry_solve(p, i0, i1, track=False):
     entry = graphs._entry(p, tuple(i0.shape), torch.device("cpu"), track)
-    return graphs.drive(entry, *entry.inputs(i0, i1), p, track)
+    return pipeline.drive(entry, *entry.inputs(i0, i1), p, HaloCtx(),
+                          track)
 
 
 @pytest.mark.parametrize("name", ["ladder256", "packed", "accurate"])
 def test_entry_replays_the_eager_flow(recorded, name):
     p = PATHS[name]
     i0, i1 = _pair((16, 16, 16))
-    want = _eager(i0, i1, p)
+    want = _reference(i0, i1, p)
     first, _ = _entry_solve(p, i0, i1)
     n = len(recorded)
     assert n == (10 if p.residual_tol > 0.0 else 4)
@@ -299,7 +324,7 @@ def test_entry_replays_the_eager_flow(recorded, name):
     j0, j1 = _pair((16, 16, 16), seed=1)
     other, _ = _entry_solve(p, j0, j1)
     assert len(recorded) == n
-    assert torch.equal(other, _eager(j0, j1, p))
+    assert torch.equal(other, _reference(j0, j1, p))
     again, _ = _entry_solve(p, i0, i1)
     assert torch.equal(again, first)
     (info,) = graphs._ENTRIES.values()
@@ -310,7 +335,7 @@ def test_entry_residuals_and_a_new_shape(recorded):
     p = EARLY["multigrid"].replace(track_residuals=True)
     i0, i1 = _pair((16, 16, 16))
     flow, res = _entry_solve(p, i0, i1, track=True)
-    want, diag = _eager(i0, i1, p, diagnostics=True)
+    want, diag = _reference(i0, i1, p, diagnostics=True)
     assert torch.equal(flow, want) and torch.equal(res, diag["residuals"])
     key = next(iter(graphs._ENTRIES))
     k0, k1 = _pair((16, 16, 24))
@@ -321,13 +346,13 @@ def test_entry_residuals_and_a_new_shape(recorded):
 def test_entry_counts_replayed_launches_only(recorded, monkeypatch):
     """A segment's launches count once per replay: not at the warm-up, not
     at the capture."""
-    real = graphs._upsample
+    real = pipeline._upsample
 
-    def launching(flow, shape, p):
+    def launching(flow, shape, p, ctx):
         kernels.LAUNCHES["median3"] += 1  # what a wrapper does per launch
-        return real(flow, shape, p)
+        return real(flow, shape, p, ctx)
 
-    monkeypatch.setattr(graphs, "_upsample", launching)
+    monkeypatch.setattr(pipeline, "_upsample", launching)
     p = PATHS["ladder256"].replace(levels=3)
     i0, i1 = _pair((32, 32, 32))
     assert len(p.level_shapes((32, 32, 32))) == 3
@@ -369,9 +394,9 @@ def test_entry_refuses_other_tensors(recorded):
     p = PATHS["ladder256"]
     i0, i1 = _pair((16, 16, 16))
     entry = graphs._entry(p, (16, 16, 16), torch.device("cpu"), False)
-    graphs.drive(entry, *entry.inputs(i0, i1), p)
+    pipeline.drive(entry, *entry.inputs(i0, i1), p, HaloCtx())
     with pytest.raises(RuntimeError, match="other tensors"):
-        graphs.drive(entry, i0.float(), i1.float(), p)
+        pipeline.drive(entry, i0.float(), i1.float(), p, HaloCtx())
 
 
 def test_entry_refuses_results_of_another_level(recorded):
@@ -381,7 +406,7 @@ def test_entry_refuses_results_of_another_level(recorded):
     p = PATHS["accurate"]
     i0, i1 = _pair((16, 16, 16))
     entry = graphs._entry(p, (16, 16, 16), torch.device("cpu"), False)
-    graphs.drive(entry, *entry.inputs(i0, i1), p)
+    pipeline.drive(entry, *entry.inputs(i0, i1), p, HaloCtx())
     g1 = entry.graphs[("pre", 1)].outs[0]
     pyramid = entry.graphs[("prep",)].outs[0][0]
     same = entry(("x", 1), lambda g, v: (g * 2.0, v + 1.0), (g1, pyramid))

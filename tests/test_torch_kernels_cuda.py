@@ -1021,22 +1021,22 @@ def test_a_capture_that_fails_raises(dev, monkeypatch):
     """An operation a CUDA graph cannot capture (a host read), planted in a
     segment, raises: nothing runs eagerly in its place, the entry is
     dropped, and the next call captures and runs."""
-    from tpuflow3d_torch import graphs
-    real = graphs._upsample
+    from tpuflow3d_torch import graphs, pipeline
+    real = pipeline._upsample
 
-    def planted(flow, shape, p):
+    def planted(flow, shape, p, ctx):
         flow.sum().item()
-        return real(flow, shape, p)
+        return real(flow, shape, p, ctx)
 
     p = FlowParams(levels=2, warps=1, inner_iterations=1, sweeps=2)
     i0, i1, _ = syn.make_pair((32, 32, 32), syn.translation((1.0, 0.5, 0.0)))
     graphs.clear()
-    monkeypatch.setattr(graphs, "_upsample", planted)
+    monkeypatch.setattr(pipeline, "_upsample", planted)
     with pytest.raises(RuntimeError):
         compute_flow(i0, i1, p, device=dev)
     assert graphs.entries() == {}
     assert torch.cuda.current_stream(dev) == torch.cuda.default_stream(dev)
-    monkeypatch.setattr(graphs, "_upsample", real)
+    monkeypatch.setattr(pipeline, "_upsample", real)
     flow = compute_flow(i0, i1, p, device=dev)
     assert bool(torch.isfinite(flow).all())
     graphs.clear()

@@ -105,10 +105,9 @@ def test_unsupported_settings_raise(kw):
     sweep constants that the kernels have no instantiation for."""
     vol = np.zeros((8, 8, 8), np.float32)
     for backend in ("auto", "plain"):
-        with pytest.raises(NotImplementedError, match="ROADMAP") as err:
+        with pytest.raises(NotImplementedError, match="float32"):
             compute_flow(vol, vol, FlowParams(levels=1, backend=backend,
                                               **kw), device="cpu")
-        assert "float32" in str(err.value)
 
 
 @pytest.mark.parametrize("kw", [
@@ -163,7 +162,7 @@ def test_reference_accurate_preset_is_served_on_the_kernel_route():
     acc = from_reference(REF_PRESETS["accurate-bf16"])
     assert acc.solver == "multigrid" and acc.terms_dtype == "bfloat16"
     (msg,) = unsupported(acc.replace(dtype="bfloat16"))
-    assert "item 5" in msg and "only solver dtype" in msg
+    assert "terms_dtype='bfloat16'" in msg and "only solver dtype" in msg
 
 
 @pytest.mark.parametrize("texture", ["blobs", "fourier"])

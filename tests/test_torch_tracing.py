@@ -6,7 +6,7 @@ CPU at 16^3-32^3:
     table stays empty over whole in-core and streamed solves;
 (b) on, the flows are bitwise those with it off (``ladder256`` and
     ``accurate`` in core at 32^3, the streamed ladder);
-(c) on, ``tf3d.replay.<segment>`` counts every segment ``graphs.drive``
+(c) on, ``tf3d.replay.<segment>`` counts every segment ``pipeline.drive``
     runs, ``tf3d.early_stop`` opens once per inner iteration, and self
     seconds never exceed seconds;
 (d) streamed, ``tf3d.stream.host_arrays`` opens in
@@ -37,9 +37,10 @@ import numpy as np
 import pytest
 import torch
 
-from tpuflow3d_torch import PRESETS, compute_flow, graphs
+from tpuflow3d_torch import PRESETS, compute_flow, graphs, pipeline
 from tpuflow3d_torch import piecewise as pw
 from tpuflow3d_torch import synthetic as syn
+from tpuflow3d_torch.grid import HaloCtx
 from tpuflow3d_torch.utils import profiling
 
 torch.set_num_threads(2)
@@ -125,7 +126,7 @@ def test_streamed_flow_is_bitwise_with_tracing_on():
 
 # ---- (c) the in-core spans ----
 
-class _Counting(graphs._Direct):
+class _Counting(graphs.Direct):
     """The direct runner, counting the segments it runs by name."""
 
     def __init__(self):
@@ -141,7 +142,7 @@ def test_replay_spans_count_the_segments_drive_runs(name):
     p = INCORE[name]
     i0, i1 = (torch.from_numpy(x) for x in _pair((16, 16, 16)))
     run = _Counting()
-    _traced(graphs.drive, run, i0, i1, p)
+    _traced(pipeline.drive, run, i0, i1, p, HaloCtx())
     spans = profiling.snapshot()["spans"]
     replays = {k.rsplit(".", 1)[1]: v["calls"] for k, v in spans.items()
                if k.startswith("tf3d.replay.")}
@@ -340,7 +341,6 @@ def test_a_replayed_pair_counts_what_the_eager_one_counts(name):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
                     "false)")
-    from tpuflow3d_torch.grid import HaloCtx
     from tpuflow3d_torch.pipeline import compute_flow_impl
     p = GAMMA[name]
     dev = torch.device("cuda", 0)
