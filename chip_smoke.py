@@ -53,7 +53,14 @@
    K9, the same of the general system (gamma > 0), bitwise against
    ``solver.general_terms`` on every level shape of ``ladder512`` with
    gamma 1 at 512^3 and on the small shapes, timed beside its bound (128
-   B/voxel), and 54 launches in such a pair at 512^3.
+   B/voxel), and 54 launches in such a pair at 512^3. ``[mg]``: K10 and
+   K11, the multigrid V-cycle's grid transfers, bitwise
+   ``mgsolver.restrict_residual_plain`` and ``prolong_add_plain`` on every
+   grid of a 256^3 hierarchy (rank-1 and general data blocks, rhs in
+   float32 and bfloat16), each timed beside its bound (52 B a fine and 12 a
+   coarse voxel; 24 and 12) and the plain version; then a 128^3
+   ``accurate`` pair bitwise the pair with the transfers on their plain
+   route, with as many V-cycles, its launches and warm walls printed.
 4. Drives ``tpuflow3d_torch.compute_flow`` with ``PRESETS["ladder256"]`` on
    a 256^3 blob translation, once through the kernels (backend "auto") and
    once plain, each replayed from the CUDA graphs of ``graphs.py`` (the
@@ -209,7 +216,8 @@ TOLS = {"sor_halfsweep": (0.0, 0.0), "warp_grad": (1e-5, 1e-5),
         "median3": (0.0, 0.0), "warp_grad_tricubic": (1e-5, 1e-5),
         "sor_gc": (0.0, 0.0), "sor_packed": (5e-5, 1e-5),
         "sor_gc_packed": (5e-5, 1e-5), "terms": (0.0, 0.0),
-        "terms_gc": (0.0, 0.0)}
+        "terms_gc": (0.0, 0.0), "mg_restrict": (0.0, 0.0),
+        "mg_prolong": (0.0, 0.0)}
 # kernel -> (the source that holds its device code, the TPU kernel it
 # replaces, the C entry's source where another file holds the body).
 SOURCES = {
@@ -234,6 +242,12 @@ SOURCES = {
     "terms_gc": ("src/tpuflow3d_torch/csrc/terms.cu",
                  "src/tpuflow3d/solver.py:compute_terms (XLA, no Pallas "
                  "kernel)"),
+    "mg_restrict": ("src/tpuflow3d_torch/csrc/mg_transfer.cu",
+                    "src/tpuflow3d/mgsolver.py:_vcycle's mg_residual and "
+                    "resize3 (XLA, no Pallas kernel)"),
+    "mg_prolong": ("src/tpuflow3d_torch/csrc/mg_transfer.cu",
+                   "src/tpuflow3d/mgsolver.py:_vcycle's resize3 and add "
+                   "(XLA, no Pallas kernel)"),
 }
 # kernel -> a pattern that its device functions' names match in a profiler
 # trace. K1 and K6 share the templates of csrc/sor_sweep.cuh (colour_kernel,
@@ -248,7 +262,9 @@ KERNEL_SYMBOLS = {
     "sor_packed": r"::sor_halfsweep_packed_kernel<",
     "sor_gc_packed": r"::sor_halfsweep_gc_packed_kernel<",
     "terms": r"tf3d_terms::rank1_kernel",
-    "terms_gc": r"tf3d_terms::gc_kernel"}
+    "terms_gc": r"tf3d_terms::gc_kernel",
+    "mg_restrict": r"tf3d_mg::restrict_kernel<",
+    "mg_prolong": r"tf3d_mg::prolong_kernel"}
 # path -> (preset, changes, the kernels it must launch, EPE limit). A kernel
 # maps to the launch count the path must show exactly, or to None for any
 # count above 0; 900 is 5 levels (all of even W) x 3 warps x 3 inner
@@ -257,7 +273,9 @@ KERNEL_SYMBOLS = {
 # level (16^3 = 4096 voxels) in one launch of one block: 4 x 180 + 9 = 729.
 # K8 makes each nonlinearity update of the rank-1 system on a whole volume:
 # levels x warps x inner iterations, 45 for ladder256 and 120 for accurate;
-# K9 each of the general system with gamma > 0 and SOR: 45.
+# K9 each of the general system with gamma > 0 and SOR: 45. Multigrid
+# restricts (K10) and prolongs (K11) once a grid of each V-cycle the early
+# stop lets run, on a whole volume.
 # The JAX package's TPU records:
 # ladder256 0.0179 on its bench input; accurate 3.4e-4 and its accuracy
 # gate 1e-3.
@@ -267,7 +285,8 @@ PATHS = {
                    "terms": 45}, 0.03),
     "accurate": ("accurate", {},
                  {"warp_grad_tricubic": None, "sor_gc": None,
-                  "median3": None, "terms": 120}, 1e-3),
+                  "median3": None, "terms": 120, "mg_restrict": None,
+                  "mg_prolong": None}, 1e-3),
     "gamma": ("ladder256", {"gamma": 1.0},
               {"warp_grad": None, "sor_gc": 729, "median3": None,
                "terms_gc": 45}, 0.03),
@@ -279,7 +298,8 @@ PATHS = {
                       "median3": None, "terms_gc": 45}, 0.03),
     "accurate-bf16": ("accurate-bf16", {},
                       {"warp_grad_tricubic": None, "sor_gc": None,
-                       "median3": None, "terms": 120}, 1e-3),
+                       "median3": None, "terms": 120, "mg_restrict": None,
+                       "mg_prolong": None}, 1e-3),
 }
 # Turns of (flat, packed, packed, flat) in the end-to-end layout comparison.
 LAYOUT_TURNS = 3
@@ -304,7 +324,8 @@ STREAM_PATHS = {
                           "median3": None}, 0.03),
     "stream:accurate": ("accurate", {},
                         {"warp_grad_tricubic": None, "sor_gc": None,
-                         "median3": None}, 1e-3),
+                         "median3": None, "mg_restrict": None,
+                         "mg_prolong": None}, 1e-3),
 }
 # The JAX package's streamed-vs-in-core gate (tests/test_piecewise.py:61-64):
 # max |diff| and mean |diff| of the flows, |difference of the EPEs|.
@@ -921,6 +942,162 @@ def terms_gc_phase(torch, dev, summary) -> None:
                       lambda *a: general_terms(*a, p), ("c", "psi_s", "ainv"),
                       roofline.TERMS_GC_BYTES_PER_VOXEL)
     count_pair_launches(torch, dev, summary, "terms_gc", "terms_gc", p, gen)
+
+
+def mg_phase(torch, dev, summary) -> None:
+    """[mg]: K10 and K11 bitwise their plain versions on every grid of the
+    multigrid hierarchy of a 256^3 volume (rank-1 and general data blocks,
+    rhs in float32 and bfloat16 on the finest grid), each timed
+    (CUDA-event medians of 10) beside its bound and the plain version;
+    then a 128^3 ``accurate`` pair, graphed, bitwise the pair with the
+    transfers on their plain route, with as many V-cycles, and its
+    launches."""
+    from tpuflow3d_torch import PRESETS, compute_flow, graphs, kernels
+    from tpuflow3d_torch import mgsolver, synthetic as syn
+    from tpuflow3d_torch.grid import HaloCtx
+    from tpuflow3d_torch.kernels import mg_transfer
+    from tpuflow3d_torch.params import FlowParams
+    from tpuflow3d_torch.solver import SolveTerms
+    from tpuflow3d_torch.utils import roofline
+    rates, sheet_bw, probed_bw = (ROOFLINE[k] for k in ("rates", "sheet_bw",
+                                                        "probed_bw"))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+
+    def rnd(*s, scale=1.0):
+        return torch.randn(s, generator=gen, device=dev) * scale
+
+    def hierarchy(general):
+        psi_d = 0.5 + rnd(*SHAPE).abs()
+        g = rnd(3, *SHAPE, scale=0.3)
+        d6 = None
+        if general:
+            h = rnd(3, 3, *SHAPE, scale=0.2)
+            d6 = torch.stack([psi_d * g[i] * g[j] + (h[:, i] * h[:, j]).sum(0)
+                              for i, j in ((0, 0), (0, 1), (0, 2), (1, 1),
+                                           (1, 2), (2, 2))])
+        t = SolveTerms(c=None, g=g, w=None, sw_inv=None, smt=None,
+                       psi_s=0.2 + rnd(*SHAPE).abs(), psi_d=psi_d, d6=d6)
+        return mgsolver.build_mg_levels(
+            t, FlowParams(solver="multigrid", alpha=0.05), HaloCtx())
+
+    def held(name, got, want, label):
+        if not torch.equal(bits(torch, got), bits(torch, want)):
+            bad = int((bits(torch, got) != bits(torch, want)).sum())
+            raise AssertionError(f"{name} {label}: {bad} values differ from "
+                                 f"the plain version (max |diff| "
+                                 f"{float((got - want).abs().max()):.3e})")
+
+    for name in ("mg_restrict", "mg_prolong"):
+        summary[name] = {"max_abs_err": 0.0, "by_grid": {}}
+    for general in (False, True):
+        levels = hierarchy(general)
+        for li, lvl in enumerate(levels[:-1]):
+            fine, coarse = lvl.shape_global, levels[li + 1].shape_global
+            label = f"{fine} -> {coarse}"
+            du = rnd(3, *fine, scale=0.1)
+            ec = rnd(3, *coarse, scale=0.1)
+            rhss = [rnd(3, *fine)]
+            if li == 0:
+                rhss.append(rnd(3, *fine).to(torch.bfloat16))
+            for rhs in rhss:
+                held("mg_restrict",
+                     mg_transfer.restrict_residual(du, lvl, rhs, coarse),
+                     mgsolver.restrict_residual_plain(du, lvl, rhs, coarse),
+                     f"{label} rhs {rhs.dtype}")
+            want = mgsolver.prolong_add_plain(du, ec, fine)
+            held("mg_prolong", mg_transfer.prolong_add(du, ec, lvl), want,
+                 label)
+            mine = du.clone()
+            held("mg_prolong", mg_transfer.prolong_add(mine, ec, lvl,
+                                                       in_place=True),
+                 want, f"{label} in place")
+            if general:
+                continue
+            rhs = rhss[0]
+            for name, kern, plain in (
+                    ("mg_restrict",
+                     lambda: mg_transfer.restrict_residual(du, lvl, rhs,
+                                                           coarse),
+                     lambda: mgsolver.restrict_residual_plain(du, lvl, rhs,
+                                                              coarse)),
+                    ("mg_prolong",
+                     lambda: mg_transfer.prolong_add(mine, ec, lvl,
+                                                     in_place=True),
+                     lambda: mgsolver.prolong_add_plain(du, ec, fine))):
+                n_vox = fine[0] * fine[1] * fine[2]
+                nbytes = roofline.mg_transfer_bytes(name, fine, coarse)
+                ms = cuda_ms(torch, kern)
+                plain_ms = cuda_ms(torch, plain)
+                b = roofline.bound(name, nbytes, n_vox, bw=sheet_bw,
+                                   rates=rates)
+                b_probed = roofline.bound(name, nbytes, n_vox, bw=probed_bw,
+                                          rates=rates)["bound_ms"]
+                log(f"[mg] {name} {label}: bitwise the plain version; "
+                    f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                    f"{b['bound_ms']:.4f} ms by {b['bound_by']} "
+                    f"({100 * b['bound_ms'] / ms:.1f}% of it); at the probed "
+                    f"rate {b_probed:.4f} ms")
+                entry = summary[name]
+                entry["by_grid"]["x".join(map(str, fine))] = {
+                    "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": b["bound_ms"], "bound_probed_ms": b_probed}
+                if fine == SHAPE:
+                    entry.update(ms=ms, plain_ms=plain_ms,
+                                 bound_ms=b["bound_ms"],
+                                 bound_by=b["bound_by"],
+                                 bound_bytes_ms=b["bound_bytes_ms"],
+                                 bound_operations_ms=b[
+                                     "bound_operations_ms"],
+                                 bound_probed_ms=b_probed,
+                                 probed_bytes_per_s=probed_bw)
+            del du, ec, rhss, mine, want
+        del levels
+    torch.cuda.empty_cache()
+
+    # A 128^3 accurate pair: the kernel route against the plain one.
+    p = PRESETS["accurate"]
+    i0, i1, _ = syn.make_pair((128,) * 3, syn.translation(SHIFT), seed=3)
+
+    def pair():
+        graphs.clear()
+        kernels.reset_launches()
+        compute_flow(i0, i1, p, device=dev)
+        t0 = time.perf_counter()
+        flow = compute_flow(i0, i1, p, device=dev)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        (info,) = graphs.entries().values()
+        graphs.clear()
+        bodies = {k: n for k, n in info["replays_by_key"].items()
+                  if k[0] == "body"}
+        return flow, dict(kernels.LAUNCHES), bodies, wall
+
+    got, launched, bodies, wall = pair()
+    route = mgsolver.transfers_on_kernel
+    mgsolver.transfers_on_kernel = lambda p, x, ctx: False
+    try:
+        want, plain_launched, plain_bodies, plain_wall = pair()
+    finally:
+        mgsolver.transfers_on_kernel = route
+    held("the accurate pair", got, want, "at 128^3")
+    if bodies != plain_bodies:
+        raise AssertionError(f"[mg] V-cycles {bodies} on the kernel route, "
+                             f"{plain_bodies} on the plain one")
+    if not (launched["mg_restrict"] > 0 and plain_launched["mg_restrict"]
+            == plain_launched["mg_prolong"] == 0):
+        raise AssertionError(f"[mg] launches {launched}, plain route "
+                             f"{plain_launched}")
+    log(f"[mg] a 128^3 accurate pair (two calls: the second warm): bitwise "
+        f"the plain route's flow, {sum(bodies.values())} V-cycles on both; "
+        f"K10 {launched['mg_restrict']}, K11 {launched['mg_prolong']} "
+        f"launches; warm call {wall:.3f} s, plain route {plain_wall:.3f} s")
+    for name in ("mg_restrict", "mg_prolong"):
+        summary[name]["launches_128_pair"] = launched[name]
+    summary["mg_restrict"]["pair_128_warm_s"] = wall
+    summary["mg_restrict"]["pair_128_plain_route_warm_s"] = plain_wall
+    del got, want
+    torch.cuda.empty_cache()
 
 
 def check_launches(label: str, launches: dict, expected: dict) -> None:
@@ -1779,7 +1956,9 @@ def cli_phase(torch, i0, i1, true, mask, launches, summary) -> None:
                     ("ladder256", {"sor_halfsweep": None, "warp_grad": None,
                                    "median3": None}, 0.03),
                     ("accurate", {"warp_grad_tricubic": None,
-                                  "sor_gc": None, "median3": None}, 1e-3)):
+                                  "sor_gc": None, "median3": None,
+                                  "mg_restrict": None, "mg_prolong": None},
+                     1e-3)):
                 p = PRESETS[preset]
                 label = f"cli:auto:{preset}"
                 want = mem.pick_chunk_z(SHAPE, p, CLI_BUDGET)
@@ -2852,6 +3031,7 @@ def main() -> None:
     # 3b. K8, the rank-1 nonlinearity update.
     terms_phase(torch, dev, summary)
     terms_gc_phase(torch, dev, summary)
+    mg_phase(torch, dev, summary)
 
     # 4-9. The main paths, each through the kernels, then plain.
     mask = syn.gradient_mask(i0, 0.75) & syn.interior_mask(SHAPE, 4)

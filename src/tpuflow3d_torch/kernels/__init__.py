@@ -21,6 +21,9 @@ point that launches its kernel on a given stream and returns
 - ``terms.cu`` K8, the rank-1 nonlinearity update of a whole volume,
   ``solver.compute_terms``' c, psi_s and psi_d, and K9, the same of the
   general system (gamma > 0): c, psi_s and ainv (``kernels/terms.py``);
+- ``mg_transfer.cu`` K10, the multigrid V-cycle's residual fused with its
+  restriction, and K11, its prolongation fused with the correction, on a
+  whole in-core grid (``kernels/mg_transfer.py``);
 - ``probe.cu`` no kernel of the path: the streaming copy and the
   fminf/fmaxf loop with which ``utils/roofline.py`` measures the card.
 
@@ -69,7 +72,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES = {"sor_halfsweep": 0, "warp_grad": 0, "median3": 0,
             "warp_grad_tricubic": 0, "sor_gc": 0, "sor_packed": 0,
-            "sor_gc_packed": 0, "terms": 0, "terms_gc": 0}
+            "sor_gc_packed": 0, "terms": 0, "terms_gc": 0,
+            "mg_restrict": 0, "mg_prolong": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)
@@ -105,6 +109,11 @@ _SIGNATURES = {
     # eps_data^2, eps_smooth^2, eps_grad^2, gamma, Charbonnier data,
     # smoothness and gradient, stream
     "tf3d_terms_gc": [_P] * 9 + [_I] * 3 + [_F] * 5 + [_I] * 3 + [_P],
+    # du, rhs, psi_s, d6, rc, the z, y and x tables, D, H, W, Dc, Hc, Wc,
+    # hz, hy, hx, rhs_bf16, stream
+    "tf3d_mg_restrict": [_P] * 8 + [_I] * 6 + [_F] * 3 + [_I, _P],
+    # du, ec, out, the z, y and x tables, D, H, W, Dc, Hc, Wc, stream
+    "tf3d_mg_prolong": [_P] * 6 + [_I] * 6 + [_P],
     # The probes of utils/roofline.py. dst, src, float4 count, reps, stream
     "tf3d_copy_probe": [_P, _P, ctypes.c_longlong, _I, _P],
     # out, blocks, iters, stream

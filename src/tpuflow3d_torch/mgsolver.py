@@ -21,6 +21,13 @@ trilinear prolongation -> mg_post sweeps, at the damped ``mg_omega``.
   XLA), one launch per sweep, or one per smoothing call on a level of at
   most 4096 voxels; the plain version is ``solver.sor_halfsweep`` on the
   level terms.
+- The grid transfers: on a whole in-core grid of CUDA tensors
+  (``transfers_on_kernel``) the residual and its restriction are one
+  launch of K10, and the prolongation and the correction one launch of K11
+  (``kernels/mg_transfer.py``), each reading the lerp tables the level
+  holds (``transfer_tables``); elsewhere (the CPU, a streamed window, a Z
+  shard) their plain versions ``restrict_residual_plain`` and
+  ``prolong_add_plain``, which the kernels match bitwise.
 
 The streamed out-of-core mode (``piecewise._stream_mg_solve``) stores only
 the fine system's constituents (c, psi_s, d6) on the host and rebuilds the
@@ -31,6 +38,8 @@ weights and the inverse per slab visit (``assemble_fine_system``,
 
 from __future__ import annotations
 
+import concurrent.futures
+import functools
 from typing import NamedTuple
 
 import torch
@@ -38,7 +47,7 @@ import torch
 from tpuflow3d_torch.backend import use_kernels
 from tpuflow3d_torch.grid import HaloCtx, Z_AXIS, neighbor_slices, replicate_pad
 from tpuflow3d_torch.params import FlowParams
-from tpuflow3d_torch.pyramid import resize3
+from tpuflow3d_torch.pyramid import lerp_coords, resize3
 from tpuflow3d_torch.solver import (SolveTerms, _DIRECTIONS, _face_masks,
                                     _neighbors6, _sym3_inverse, parity_mask,
                                     relax_steps, sor_halfsweep)
@@ -59,6 +68,8 @@ class MGLevel(NamedTuple):
     shape_global: tuple[int, int, int]
     psi_s: torch.Tensor    # (D, H, W) smoothness weight at this level
     axis_alpha: tuple      # effective alpha per axis (z, y, x): alpha/h^2
+    down: tuple = None     # K10's lerp tables (z, y, x) to the next grid
+    up: tuple = None       # K11's lerp tables (z, y, x) from the next grid
 
 
 def mg_shapes(shape_global: tuple[int, int, int],
@@ -77,6 +88,60 @@ def mg_shapes(shape_global: tuple[int, int, int],
             break
         shapes.append((dc, hc, wc))
     return shapes
+
+
+def transfers_on_kernel(p: FlowParams, x: torch.Tensor, ctx: HaloCtx) -> bool:
+    """Whether the V-cycle's grid transfers on ``x``'s grid run K10 and
+    K11: a whole volume (no window, no Z neighbours) on the kernel route."""
+    return (not ctx.is_window and ctx.is_whole(x.shape[-3])
+            and use_kernels(p, x))
+
+
+def lerp_table(in_len: int, out_len: int, device) -> torch.Tensor:
+    """The (3, out_len) int32 table of K10 and K11 for a linear resize of
+    one axis from ``in_len`` to ``out_len``: the plain resize's i0, i1 and
+    the bits of its f (``pyramid.lerp_coords``)."""
+    i0, i1, f = lerp_coords(in_len, out_len, torch.float32, device)
+    return torch.stack([i0.to(torch.int32), i1.to(torch.int32),
+                        f.view(torch.int32)])
+
+
+def _make_tables(shapes: tuple, device) -> tuple:
+    tables = tuple(
+        (tuple(lerp_table(f, c, device) for f, c in zip(fine, coarse)),
+         tuple(lerp_table(c, f, device) for f, c in zip(fine, coarse)))
+        for fine, coarse in zip(shapes, shapes[1:]))
+    if torch.device(device).type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+    return tables
+
+
+@functools.lru_cache(maxsize=64)
+def transfer_tables(shapes: tuple, device) -> tuple:
+    """For each pair of neighbouring grids of the hierarchy ``shapes``
+    (fine -> coarse): (the tables (z, y, x) restricting the finer to the
+    coarser, the tables prolonging it back). Made once per hierarchy and
+    device; a hierarchy is a pyramid level's, so the graphs of one level
+    read them (``graphs._Entry._check``).
+
+    They are made on a thread of their own, finished before they are
+    returned: a graph segment's warm-up allocates from the graphs' memory
+    pool on its own thread (``torch.cuda.use_mem_pool``), and tables made
+    there and kept past it broke the next call's replays on the card (an
+    illegal instruction)."""
+    with concurrent.futures.ThreadPoolExecutor(1) as worker:
+        return worker.submit(_make_tables, shapes, device).result()
+
+
+def with_transfers(levels: list, p: FlowParams, ctx: HaloCtx) -> list:
+    """``levels`` holding K10's and K11's tables where the transfers run
+    them (``transfers_on_kernel``), else as they are."""
+    if len(levels) < 2 or not transfers_on_kernel(p, levels[0].psi_s, ctx):
+        return levels
+    tables = transfer_tables(tuple(lvl.shape_global for lvl in levels),
+                             levels[0].psi_s.device)
+    return [lvl._replace(down=down, up=up)
+            for lvl, (down, up) in zip(levels, tables)] + levels[-1:]
 
 
 def _weights(psi_s, axis_scale, alpha, ctx: HaloCtx):
@@ -140,7 +205,7 @@ def build_mg_levels(t: SolveTerms, p: FlowParams,
                               parity_mask(shape, ctx, t.psi_s.device),
                               t.psi_s, (p.alpha,) * 3)]
     levels += build_coarse_chain(t.psi_s, d6, shapes[1:], gshape, p, ctx)
-    return levels
+    return with_transfers(levels, p, ctx)
 
 
 def build_coarse_chain(psi_s, d6, shapes, gshape_fine, p: FlowParams,
@@ -220,16 +285,39 @@ def mg_residual(du, lvl: MGLevel, rhs, ctx: HaloCtx):
     return r - (du * lvl.sw[None] + d_du)
 
 
+def restrict_residual_plain(du, lvl: MGLevel, rhs, coarse_shape,
+                            ctx: HaloCtx = HaloCtx()):
+    """The residual of ``lvl``'s system restricted to the global
+    ``coarse_shape``: the plain version of K10."""
+    return resize3(mg_residual(du, lvl, rhs, ctx), coarse_shape, ctx)
+
+
+def prolong_add_plain(du, ec, shape, ctx: HaloCtx = HaloCtx()):
+    """du plus the coarse correction ec prolonged to the global ``shape``:
+    the plain version of K11."""
+    return du + resize3(ec, shape, ctx)
+
+
 def _vcycle(du, rhs, levels: list[MGLevel], li: int, p: FlowParams,
             ctx: HaloCtx):
     lvl = levels[li]
     du = _smooth(du, lvl, rhs, p, p.mg_pre, ctx)
     if li == len(levels) - 1:
         return _smooth(du, lvl, rhs, p, p.mg_coarse_sweeps, ctx)
-    r = mg_residual(du, lvl, rhs, ctx)
-    rc = resize3(r, levels[li + 1].shape_global, ctx)
-    ec = _vcycle(torch.zeros_like(rc), rc, levels, li + 1, p, ctx)
-    du = du + resize3(ec, lvl.shape_global, ctx)
+    coarse = levels[li + 1].shape_global
+    if transfers_on_kernel(p, du, ctx):
+        from tpuflow3d_torch.kernels import mg_transfer
+        rc = mg_transfer.restrict_residual(du, lvl, rhs, coarse)
+        ec = _vcycle(torch.zeros_like(rc), rc, levels, li + 1, p, ctx)
+        # In place where du is this V-cycle's own: a coarse grid's, or the
+        # pre-smoother's result. The finest grid's iterate without
+        # pre-sweeps is the caller's, which the early stop compares with.
+        du = mg_transfer.prolong_add(du, ec, lvl,
+                                     in_place=li > 0 or p.mg_pre > 0)
+    else:
+        rc = restrict_residual_plain(du, lvl, rhs, coarse, ctx)
+        ec = _vcycle(torch.zeros_like(rc), rc, levels, li + 1, p, ctx)
+        du = prolong_add_plain(du, ec, lvl.shape_global, ctx)
     return _smooth(du, lvl, rhs, p, p.mg_post, ctx)
 
 

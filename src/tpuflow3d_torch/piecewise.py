@@ -77,7 +77,8 @@ from tpuflow3d_torch.grid import HaloCtx
 from tpuflow3d_torch.median import median3_op
 from tpuflow3d_torch.mgsolver import (_vcycle, assemble_fine_system,
                                       build_coarse_chain, data_block_d6,
-                                      fine_residual, mg_shapes)
+                                      fine_residual, mg_shapes,
+                                      with_transfers)
 from tpuflow3d_torch.params import FlowParams
 from tpuflow3d_torch.pipeline import default_device, warp_and_derivatives
 from tpuflow3d_torch.pyramid import (gaussian_kernel1d, resize_axis_local,
@@ -340,8 +341,9 @@ def _ph_coarse_vcycle(rc, psi_c, d6_c, shapes, gshape: tuple,
     in-core V-cycle below the fine level. The chain is rebuilt per call
     (mg_cycles is small and the coarse work is <= 1/7 of a fine sweep)."""
     ctx = HaloCtx()
-    levels = build_coarse_chain(psi_c, d6_c, list(shapes), gshape, p, ctx,
-                                inputs_at_first=True)
+    levels = with_transfers(
+        build_coarse_chain(psi_c, d6_c, list(shapes), gshape, p, ctx,
+                           inputs_at_first=True), p, ctx)
     return _vcycle(torch.zeros_like(rc), rc, levels, 0, p, ctx)
 
 

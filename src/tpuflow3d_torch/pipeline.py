@@ -36,6 +36,9 @@ hand-written kernels:
   (see ``warp_iteration``);
 - the SOR half-sweep: K1 (flat) or K4 (``sweep_layout="packed"``, even W);
   with gamma > 0 K6 (flat) or K7 (packed); every multigrid level K6;
+- the multigrid V-cycle's grid transfers on a whole volume: K10 (the
+  residual and its restriction) and K11 (the prolongation and the
+  correction);
 - the median: K3.
 
 ``compute_flow_checkpointed`` saves the flow at each level boundary

@@ -59,17 +59,24 @@ def _axis_coords(out_len_local: int, scale: float, z0_out,
     return (i + z0_out + 0.5) * float(np.float32(scale)) - 0.5
 
 
+def lerp_coords(in_len: int, out_len: int, dtype=torch.float32,
+                device=None) -> tuple:
+    """(i0, i1, f) of a linear resize from ``in_len`` to ``out_len`` along
+    one axis: output i is x[i0] * (1 - f) + x[i1] * f."""
+    c = _axis_coords(out_len, in_len / out_len, 0, dtype, device)
+    c = c.clamp(0.0, in_len - 1)
+    fl = torch.floor(c)
+    i0 = fl.long()
+    i1 = (i0 + 1).clamp_max(in_len - 1)
+    return i0, i1, c - fl
+
+
 def resize_axis_local(x: torch.Tensor, out_len: int, axis: int) -> torch.Tensor:
     """Linear resize along one axis (half-pixel coordinates, clipped)."""
     in_len = x.shape[axis]
     if in_len == out_len:
         return x
-    c = _axis_coords(out_len, in_len / out_len, 0, x.dtype, x.device)
-    c = c.clamp(0.0, in_len - 1)
-    fl = torch.floor(c)
-    i0 = fl.long()
-    i1 = (i0 + 1).clamp_max(in_len - 1)
-    f = c - fl
+    i0, i1, f = lerp_coords(in_len, out_len, x.dtype, x.device)
     a = x.index_select(axis, i0)
     b = x.index_select(axis, i1)
     fshape = [1] * x.ndim

@@ -63,7 +63,8 @@ OPS = {"sor_halfsweep": (86, "fp32"), "sor_packed": (86, "fp32"),
        "sor_gc": (72, "fp32"), "sor_gc_packed": (72, "fp32"),
        "warp_grad": (40, "fp32"), "warp_grad_tricubic": (265, "fp32"),
        "median3": (39, "minmax"), "terms": (130, "fp32"),
-       "terms_gc": (270, "fp32")}
+       "terms_gc": (270, "fp32"), "mg_restrict": (92, "fp32"),
+       "mg_prolong": (66, "fp32")}
 # What csrc/median3.cu's selection network executes per output value: min
 # and max instructions of the separable network (sorted rows, merged 3x3
 # blocks shared by two rows and three planes, one merge of two planes shared
@@ -94,6 +95,26 @@ TERMS_BYTES_PER_VOXEL = 12 + 4 + 12 + 12 + 12 + 4 + 4
 # gradient-constancy part of c 21, d 54, sw 6, m's diagonal 3, the
 # cofactors 18, the determinant and its inverse 6, ainv 6.
 TERMS_GC_BYTES_PER_VOXEL = 12 + 4 + 12 + 12 + 36 + 12 + 12 + 4 + 24
+# The multigrid V-cycle's grid transfers, in bytes a fine and a coarse
+# voxel: K10 reads du (12), rhs (12), psi_s and d6 (24) a fine voxel and
+# writes rc (12) a coarse one; K11 reads and writes du (24) a fine voxel
+# and reads ec (12) a coarse one. Their operations a fine voxel (OPS): K10
+# the six weights 18, sw 6, the neighbour sums 36, D du 15, the residual
+# 9, the lerps ~8 (63 a coarse voxel); K11 the lerps and the add, 22 a
+# component.
+MG_RESTRICT_BYTES = (12 + 12 + 4 + 24, 12)
+MG_PROLONG_BYTES = (24, 12)
+
+
+def mg_transfer_bytes(name: str, fine, coarse) -> int:
+    """The bytes a K10 ("mg_restrict") or K11 ("mg_prolong") launch on the
+    grids of shapes ``fine`` and ``coarse`` needs (float32 rhs)."""
+    per_fine, per_coarse = {"mg_restrict": MG_RESTRICT_BYTES,
+                            "mg_prolong": MG_PROLONG_BYTES}[name]
+    return (per_fine * fine[0] * fine[1] * fine[2]
+            + per_coarse * coarse[0] * coarse[1] * coarse[2])
+
+
 # csrc/probe.cu's min/max loop: compare-exchanges an iteration, x 2.
 MINMAX_PER_ITER = 30
 # The default footprint of the bandwidth probe, a side: 20x the H100's

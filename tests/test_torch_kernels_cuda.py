@@ -684,10 +684,12 @@ PATHS = {
     "ladder": (FlowParams(levels=2, warps=3, inner_iterations=3, sweeps=20),
                {"sor_halfsweep", "warp_grad", "median3", "terms"}),
     "accurate": (PRESETS["accurate"].replace(levels=2, warps=3),
-                 {"warp_grad_tricubic", "sor_gc", "median3", "terms"}),
+                 {"warp_grad_tricubic", "sor_gc", "median3", "terms",
+                  "mg_restrict", "mg_prolong"}),
     "accurate_gamma": (PRESETS["accurate"].replace(levels=2, warps=3,
                                                    gamma=1.0),
-                       {"warp_grad_tricubic", "sor_gc", "median3"}),
+                       {"warp_grad_tricubic", "sor_gc", "median3",
+                        "mg_restrict", "mg_prolong"}),
     "gamma": (FlowParams(levels=2, warps=3, inner_iterations=3, sweeps=20,
                          gamma=1.0),
               {"warp_grad", "sor_gc", "median3", "terms_gc"}),
@@ -707,7 +709,8 @@ PATHS = {
                                sweeps=20, terms_dtype="bfloat16"),
                     {"sor_halfsweep", "warp_grad", "median3", "terms"}),
     "accurate_bf16": (PRESETS["accurate-bf16"].replace(levels=2, warps=3),
-                      {"warp_grad_tricubic", "sor_gc", "median3", "terms"}),
+                      {"warp_grad_tricubic", "sor_gc", "median3", "terms",
+                       "mg_restrict", "mg_prolong"}),
     # Order 4 warps and differentiates in plain PyTorch (the fused kernels
     # compute 2-point derivatives); the sweeps and the median run kernels.
     "order4": (FlowParams(levels=2, warps=3, inner_iterations=3, sweeps=20,
@@ -870,7 +873,8 @@ STREAM_PATHS = {
                                   "gamma": 1.0}), 8, (30, 32, 32),
                     {"sor_gc", "warp_grad", "median3"}),
     "accurate": (PRESETS["accurate"].replace(levels=2, warps=3), 8,
-                 (32, 32, 32), {"warp_grad_tricubic", "sor_gc", "median3"}),
+                 (32, 32, 32), {"warp_grad_tricubic", "sor_gc", "median3",
+                                "mg_restrict", "mg_prolong"}),
 }
 
 

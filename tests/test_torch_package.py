@@ -231,7 +231,7 @@ def test_library_path_follows_sources():
     assert re.fullmatch(r"lib[0-9a-f]{16}\.so", path.name)
     assert {p.name for p in kernels.CSRC_DIR.glob("*.cu")} == {
         "sor.cu", "warp_grad.cu", "median3.cu", "sor_gc.cu", "sor_packed.cu",
-        "sor_gc_packed.cu", "probe.cu", "terms.cu"}
+        "sor_gc_packed.cu", "probe.cu", "terms.cu", "mg_transfer.cu"}
 
 
 def test_library_path_follows_headers(tmp_path, monkeypatch):
@@ -259,7 +259,8 @@ def test_every_entry_point_is_declared_and_counted():
     assert entries == set(kernels._SIGNATURES)
     assert set(kernels.LAUNCHES) == {
         "sor_halfsweep", "warp_grad", "median3", "warp_grad_tricubic",
-        "sor_gc", "sor_packed", "sor_gc_packed", "terms", "terms_gc"}
+        "sor_gc", "sor_packed", "sor_gc_packed", "terms", "terms_gc",
+        "mg_restrict", "mg_prolong"}
 
 
 def test_kernels_build_without_fma_contraction(monkeypatch):
