@@ -72,11 +72,18 @@ class Observed:
     (finest first); ``mode``; ``card``: the device's name; ``replays``:
     graph replays by key over the profiled pairs; ``staging``: host seconds
     of the streamed staging (``system.host_split``) over ``staging_wall``
-    seconds of unprofiled pairs."""
+    seconds of unprofiled pairs. In a sharded cell the trace is one rank's:
+    ``rank`` of ``ranks``, ``shapes`` are that rank's Z slabs of the level
+    shapes (every level's depth is a multiple of ``ranks``), and ``comm``
+    is the program's count of that rank's collectives (``grid.COMM``:
+    exchanges, gathers, reductions, bytes sent, host seconds) over
+    ``comm_wall`` seconds of unprofiled pairs."""
 
     def __init__(self, evs: list[Event], pairs: int, params: dict,
                  shapes: list, mode: str, card: str, replays: dict,
-                 staging: dict, staging_wall: float):
+                 staging: dict, staging_wall: float, rank: int = 0,
+                 ranks: int = 1, comm: dict | None = None,
+                 comm_wall: float = 0.0):
         marks = [e for e in evs if e.kind == "host" and e.name == PAIR]
         self.span = ((min(e.start for e in marks), max(e.end for e in marks))
                      if marks else (0, 0))
@@ -89,6 +96,8 @@ class Observed:
         self.pairs, self.params, self.shapes = pairs, params, shapes
         self.mode, self.card, self.replays = mode, card, replays
         self.staging, self.staging_wall = staging, staging_wall
+        self.rank, self.ranks = rank, ranks
+        self.comm, self.comm_wall = comm or {}, comm_wall
         self.busy = merged((e.start, e.end) for e in self.device)
 
     @property

@@ -112,26 +112,49 @@ def make_pair(shape, seed, texture: dict, deformation: dict,
     over the whole volume, on the host, and the offset, rounded to
     float32, is added to i1 in place: the pair does not depend on the
     device. The true flow is unchanged."""
+    _check_intensity(intensity)
+    i0 = np.empty(shape, np.float32)
+    i1 = np.empty(shape, np.float32)
+    fill_planes(i0, i1, seed, texture, deformation, 0, shape[0], device)
+    add_intensity(i1, intensity)
+    return i0, i1
+
+
+def fill_planes(i0: np.ndarray, i1: np.ndarray, seed, texture: dict,
+                deformation: dict, z0: int, z1: int, device) -> None:
+    """Planes [z0, z1) of ``make_pair``'s (i0, i1) before its brightness
+    change, written into ``i0`` and ``i1`` (whole volumes): each voxel is
+    evaluated alone, so planes filled apart (a sharded cell's ranks, each
+    on its own card) make ``make_pair``'s pair bit for bit."""
     if texture.get("kind", "fourier") != "fourier" or \
             deformation.get("kind", "sinusoid") != "sinusoid":
         raise ValueError("the generator makes fourier textures under a "
                          "sinusoid deformation")
-    if intensity is not None and intensity.get("kind") != "offset":
-        raise ValueError(f"unknown intensity change {intensity!r}: the "
-                         f"generator adds an offset (kind \"offset\")")
+    shape = i0.shape
     modes = fourier_modes(seed, texture["modes"], texture["kmin"],
                           texture["kmax"])
     fn = sinusoid(shape, deformation["amplitude"], deformation["periods"])
-    i0 = np.empty(shape, np.float32)
-    i1 = np.empty(shape, np.float32)
-    for z0, z1 in _slabs(shape):
-        pts = _grid(shape, z0, z1, device)
-        i0[z0:z1] = field(modes, pts).float().cpu().numpy()
-        i1[z0:z1] = field(modes, invert_flow(fn, pts)).float().cpu().numpy()
+    step = max(1, _SLAB_VOXELS // (shape[1] * shape[2]))
+    for a in range(z0, z1, step):
+        b = min(a + step, z1)
+        pts = _grid(shape, a, b, device)
+        i0[a:b] = field(modes, pts).float().cpu().numpy()
+        i1[a:b] = field(modes, invert_flow(fn, pts)).float().cpu().numpy()
+
+
+def _check_intensity(intensity: dict | None) -> None:
+    if intensity is not None and intensity.get("kind") != "offset":
+        raise ValueError(f"unknown intensity change {intensity!r}: the "
+                         f"generator adds an offset (kind \"offset\")")
+
+
+def add_intensity(i1: np.ndarray, intensity: dict | None) -> None:
+    """``make_pair``'s brightness change of the whole moving volume, in
+    place, once every plane is filled."""
+    _check_intensity(intensity)
     if intensity is not None:
         i1 += np.float32(intensity["std_fraction"]
                          * float(np.std(i1, dtype=np.float64)))
-    return i0, i1
 
 
 def true_flow_slab(shape, deformation: dict, z0: int, z1: int,

@@ -2,7 +2,9 @@
 
 ``run.py`` parses the command line and calls ``main``; ``readings.py`` uses
 the same pieces to read the compared numbers over many seeds in one
-process.
+process. What follows is a cell in one process on one card (the traffic's
+``mode`` ``incore`` or ``stream``); a ``sharded`` cell runs one rank
+process a card (``sharded.py``) and prints its result through ``emit``.
 
 - Set-up (``setup_s``, from the start of the process): torch and the
   program imported, the kernels built or loaded, the traffic's distinct
@@ -56,15 +58,20 @@ def card_info(device: torch.device) -> tuple[str, str]:
     """(name, power limit) of the card; ("cpu", "") on the CPU."""
     if device.type != "cuda":
         return "cpu", ""
-    name = torch.cuda.get_device_name(device)
+    return torch.cuda.get_device_name(device), power_limit(device.index or 0)
+
+
+def power_limit(index: int | None = None) -> str:
+    """The power limit ``nvidia-smi`` reads for card ``index``, or for
+    every card, one line each (no CUDA call)."""
+    which = [] if index is None else [f"--id={index}"]
     try:
-        limit = subprocess.run(
+        return subprocess.run(
             ["nvidia-smi", "--query-gpu=power.limit",
-             "--format=csv,noheader", f"--id={device.index or 0}"],
+             "--format=csv,noheader", *which],
             capture_output=True, text=True, timeout=30).stdout.strip()
     except (OSError, subprocess.SubprocessError):
-        limit = "unknown"
-    return name, limit
+        return "unknown"
 
 
 class Bench:
@@ -221,6 +228,9 @@ def main(args) -> int:
     age0 = process_age()
     t_proc = time.perf_counter() - age0
     cell = spec.Cell(args.workload)
+    if cell.mode == "sharded":
+        from flowbench import sharded
+        return sharded.main(args, cell, t_proc)
     dev = _device(args.device, cell.chips)
     if dev is None:
         return 2
@@ -260,27 +270,41 @@ def main(args) -> int:
     checks = {k: {"value": gaps[k], "limit": cell.limits[k]}
               for k in ("flow_max_gap", "flow_mean_gap")}
     correct = failed == 0 and all(f is not None for f in kept)
+    values = {"voxels_per_s": done * cell.voxels / window_s,
+              "peak_bytes_per_voxel": peak / cell.voxels,
+              "epe": epe, "setup_s": setup_s}
+    device = {"platform": "gpu" if dev.type == "cuda" else "cpu",
+              "kind": card, "count": cell.chips, "memory_peak_bytes": peak}
+    if obs is not None:
+        device["busy_s"] = obs.busy_s
+        device["window_s"] = obs.span_s
+    return emit(cell, bool(args.trace), correct, done, failed, values,
+                device, obs, checks)
 
-    if args.trace:
+
+def emit(cell: spec.Cell, trace: bool, correct: bool, attempted: int,
+         failed: int, values: dict, device: dict, obs, checks: dict,
+         loaded: tuple = ()) -> int:
+    """Print a run's result as its last line of standard output: the
+    end-to-end ``values`` by quantity, or with ``trace`` the per-layer
+    metrics read from ``obs`` and its ``breakdown``; then each compared
+    number beside its limit as the last lines of standard error. Returns
+    non-zero, printing no result, where this process or another of the run
+    (``loaded``: the forbidden modules the run's other processes found)
+    loaded a forbidden module."""
+    if trace:
         metrics = {}
         for m in cell.per_layer:
             v = cell.reader(m["name"])(obs)
             if v is not None:
                 metrics[m["name"]] = {"value": v, "unit": m["unit"]}
     else:
-        values = {"voxels_per_s": done * cell.voxels / window_s,
-                  "peak_bytes_per_voxel": peak / cell.voxels,
-                  "epe": epe, "setup_s": setup_s}
         metrics = {m["name"]: {"value": values[spec.base(m["name"])],
                                "unit": m["unit"]}
                    for m in cell.end_to_end}
-    device = {"platform": "gpu" if dev.type == "cuda" else "cpu",
-              "kind": card, "count": cell.chips, "memory_peak_bytes": peak}
-    result = {"correct": correct, "attempted": done,
+    result = {"correct": correct, "attempted": attempted,
               "failed": int(failed), "metrics": metrics, "device": device}
     if obs is not None:
-        device["busy_s"] = obs.busy_s
-        device["window_s"] = obs.span_s
         result["breakdown"] = obs.breakdown()
         log(f"[flowbench] traced {obs.pairs} pairs: busy {obs.busy_s:.4f} "
             f"of {obs.span_s:.4f} s, {len(obs.device)} device activities")
@@ -288,7 +312,7 @@ def main(args) -> int:
             log(f"[flowbench]   {sec:10.6f} s {n:8d}x  {name[:160]}")
     result["checks"] = checks
 
-    bad = forbidden_modules()
+    bad = sorted(set(forbidden_modules()) | set(loaded))
     if bad:
         log(f"[flowbench] forbidden modules loaded: {', '.join(bad)}")
         return 3

@@ -11,12 +11,19 @@ A reference module gives ``Params.from_dict(settings)``, an object with
 ``level_shapes(shape)``, and ``solve(i0, i1, p, stream_chunk)``, the
 (3, D, H, W) float32 flow of a pair of (D, H, W) tensors on their device
 (``stream_chunk`` None in core, else the streamed mode's chunk); it raises
-on settings it does not compute.
+on settings it does not compute. A reference may also take ``devices``
+(``solve(i0, i1, p, stream_chunk, devices=...)``): the cards of a sharded
+cell, in rank order, for a volume that no one card holds. It then gets the
+pair as tensors on the host and returns the flow on the host, computing
+where it likes on those cards. The check passes ``devices`` only in a
+sharded cell and only to a reference that takes them; every other call is
+``solve(i0, i1, p, stream_chunk)`` on the first card.
 """
 
 from __future__ import annotations
 
 import importlib.util
+import inspect
 import json
 import math
 import re
@@ -41,7 +48,7 @@ class Cell:
         found = [w for w in bench["workloads"] if w["name"] == name]
         if not found:
             raise KeyError(f"no workload {name!r} in BENCHMARK.json")
-        self.name = name
+        self.name, self.root = name, root
         self.workload = found[0]
         self.chips = self.workload["chips"]
         self.config = _json(HERE / "configs" / f"{self.workload['config']}.json")
@@ -51,7 +58,8 @@ class Cell:
         self.mode = self.traffic["mode"]
         edge = self.config["edge"][self.mode]
         self.shape = (edge, edge, edge)
-        self.params = solver_params(self.config, self.traffic, self.shape)
+        self.params = solver_params(self.config, self.traffic, self.shape,
+                                    self.chips)
         self.end_to_end = _metrics_for(bench["end_to_end"], name)
         self.per_layer = _metrics_for(bench["per_layer"], name)
 
@@ -103,15 +111,28 @@ def _metrics_for(metrics: list, cell: str) -> list:
     return [m for m in metrics if cell in m.get("workloads", [cell])]
 
 
-def solver_params(config: dict, traffic: dict, shape) -> dict:
+def solver_params(config: dict, traffic: dict, shape, chips: int = 1
+                  ) -> dict:
     """The solver settings a cell runs (``FlowParams``' fields): the
     configuration's ``params``, ``levels`` so that the coarsest level has
-    ``coarsest_planes`` planes, and, streamed, the traffic's
+    ``coarsest_planes`` planes, and, streamed or sharded, the traffic's
     ``default_flow_clamp`` where the configuration sets no clamp (the
-    streamed margins need a bound)."""
+    streamed margins and the sharded warp's halo need a bound). Sharded,
+    also ``z_multiple`` raised to a multiple of the ``chips`` ranks: the
+    two rules of the program's ``sharding.prepare_params``, applied here so
+    that the reference solves the problem the ranks solve."""
     p = dict(config["params"])
     p["levels"] = 1 + int(round(math.log2(shape[0]
                                           / config["coarsest_planes"])))
-    if traffic["mode"] == "stream" and p.get("flow_clamp", 0.0) <= 0.0:
+    if traffic["mode"] in ("stream", "sharded") and \
+            p.get("flow_clamp", 0.0) <= 0.0:
         p["flow_clamp"] = traffic["default_flow_clamp"]
+    if traffic["mode"] == "sharded":
+        zm = p.get("z_multiple", 1)
+        p["z_multiple"] = zm * chips // math.gcd(zm, chips)
     return p
+
+
+def takes_devices(reference) -> bool:
+    """Whether a reference module's ``solve`` takes ``devices``."""
+    return "devices" in inspect.signature(reference.solve).parameters

@@ -4,7 +4,10 @@ benchmark puts around calls into it.
 
 In-core: ``compute_flow`` on numpy volumes, the flow copied back to a numpy
 array. Streamed: ``piecewise.compute_flow_piecewise`` with the traffic's
-chunk. Each call ends in ``torch.cuda.synchronize()``.
+chunk. Sharded: ``sharding.compute_flow_sharded`` called by a rank inside
+its group (the SPMD form the command line's ``--distributed`` runs) on the
+whole numpy pair, of which it takes its own Z planes; its flow slab copied
+back to a numpy array. Each call ends in ``torch.cuda.synchronize()``.
 """
 
 from __future__ import annotations
@@ -40,6 +43,9 @@ class System:
             from tpuflow3d_torch.piecewise import compute_flow_piecewise
             out = compute_flow_piecewise(i0, i1, self.p, chunk_z=self.chunk,
                                          device=self.device)
+        elif self.mode == "sharded":
+            from tpuflow3d_torch.sharding import compute_flow_sharded
+            out = compute_flow_sharded(i0, i1, self.p).cpu().numpy()
         else:
             raise ValueError(f"unknown mode {self.mode!r}")
         if self.cuda:

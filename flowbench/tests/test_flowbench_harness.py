@@ -157,13 +157,21 @@ def test_benchmark_json_names_and_units():
         assert NAME.match(w["config"]) and NAME.match(w["traffic"])
         assert (REPO / "flowbench" / "traffic" / f"{w['traffic']}.json").is_file()
         assert (REPO / "flowbench" / "limits" / f"{w['name']}.json").is_file()
-        assert w["chips"] == 1 and len(w["why"]) <= 200
+        assert w["chips"] in (1, 4) and len(w["why"]) <= 200
     for m in bench["end_to_end"] + bench["per_layer"]:
         names.append(m["name"])
         assert UNIT.match(m["unit"]), m["unit"]
         assert m["better"] in ("lower", "higher")
     for m in bench["end_to_end"]:
         assert 0.01 <= m["bound"] <= 0.25
+    # A cell takes 4 cards only where a sharded traffic needs them; at most
+    # a quarter of the cells (rounded down), or one, take them.
+    four = [w for w in bench["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(bench["workloads"]) // 4)
+    for w in four:
+        tr = json.loads((REPO / "flowbench" / "traffic"
+                         / f"{w['traffic']}.json").read_text())
+        assert tr["mode"] == "sharded"
     cells = {w["name"] for w in bench["workloads"]}
     e2e = {m["name"]: m for m in bench["end_to_end"]}
     for m in bench["per_layer"]:
